@@ -3,13 +3,16 @@
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 turned into numpy arrays (``jax.tree.map(np.asarray, params)``) and gives the
 port's tree: the same keys, the same stacking over ``n_blocks``, and each
-leaf's own dtype (norm scales stay float32 in a bf16 model). Nothing here
+leaf's own dtype (norm scales stay float32 in a bf16 model).
+``cache_state_from_jax`` does the same for an SA-cache state. Nothing here
 imports JAX.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core.sa_cache import CacheState
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -31,3 +34,11 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(np.asarray(tree), device)
+
+
+def cache_state_from_jax(state, device=None) -> CacheState:
+    """A JAX ``repro.core.sa_cache.CacheState`` (or anything with its fields)
+    as the port's, through numpy; an ``epoch`` of None stays None."""
+    return CacheState(*(None if x is None else tensor_from_numpy(np.asarray(x), device)
+                        for x in (state.tags, state.hits, state.dirty, state.clock,
+                                  state.epoch)))

@@ -8,7 +8,8 @@ nvcc binary and the torch version, so an edit rebuilds and an unchanged tree
 reuses the library. A file lock keeps concurrent builds apart.
 
 Nothing here runs at import: the first call of a kernel on a CUDA tensor
-builds it. A failed build raises.
+builds it. A failed build raises. ``bind``, ``check_tensors`` and
+``raise_on_error`` are what the kernels' wrappers share.
 """
 from __future__ import annotations
 
@@ -70,3 +71,38 @@ def load(name: str) -> ctypes.CDLL:
             os.replace(tmp, lib)
     _loaded[name] = ctypes.CDLL(str(lib))
     return _loaded[name]
+
+
+def bind(name: str, symbol: str, argtypes: list):
+    """Build and load ``csrc/<name>.cu``; its C entry point ``symbol``, which
+    returns a cudaError_t as an int."""
+    lib = load(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def raise_on_error(name: str, err: int) -> None:
+    """Raise for the cudaError_t a launch of ``name`` returned (0 is success):
+    a refused launch never runs, and a later synchronize would not say so."""
+    if err:
+        msg = _loaded[name].repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def check_tensors(name: str, align: int = 1, **tensors: torch.Tensor) -> None:
+    """What every kernel takes: CUDA tensors on one device, contiguous, and
+    ``align``-byte aligned for the kernel's vector loads."""
+    device = next(iter(tensors.values())).device
+    for what, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} kernel: {what} is not on a CUDA device")
+        if t.device != device:
+            raise ValueError(f"{name} kernel: {what} on {t.device}, not {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel: {what} is not contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} kernel: {what} is not {align}-byte aligned")

@@ -21,8 +21,9 @@
 // Design (a correct, simple first version; wgmma, TMA and split-K are later
 // work):
 //   * one block per (row b, KV head, chunk of <= kMaxGroup q heads);
-//   * kWarps warps split the keys round-robin; a lane holds hd/32 contiguous
-//     elements of q, K, V and of its accumulator, the q.k dot is a warp
+//   * kWarps warps split the keys round-robin; a lane holds ceil(hd/32)
+//     contiguous elements of q, K, V and of its accumulator (hd 120: lanes
+//     0-29 hold 4 each, lanes 30-31 hold none), the q.k dot is a warp
 //     shuffle reduction;
 //   * each warp keeps its own online softmax (m, l, acc) in f32, and the
 //     warps merge through shared memory at the end;
@@ -86,7 +87,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        const T* __restrict__ v_pages, const int* __restrict__ page_table,
                        const int* __restrict__ lengths, T* __restrict__ out, int H, int KV,
                        int page, int max_pages, float softcap, float sm_scale) {
-  constexpr int EPL = HD >= 32 ? HD / 32 : 1;  // elements per lane
+  constexpr int EPL = HD >= 32 ? (HD + 31) / 32 : 1;  // elements per lane
+  static_assert(HD % EPL == 0, "a lane's elements must not straddle hd");
   __shared__ float sm_m[kWarps][kMaxGroup];
   __shared__ float sm_l[kWarps][kMaxGroup];
   __shared__ float sm_acc[kWarps][kMaxGroup][HD];
@@ -99,7 +101,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int d0 = lane * EPL;
-  const bool lane_on = d0 < HD;  // false only for lanes past hd when hd < 32
+  const bool lane_on = d0 < HD;  // false only for lanes past hd (hd < 32, hd 120)
   const int len = lengths[b];
   const int64_t head0 = (int64_t)b * H + (int64_t)kvh * group + g0;
 
@@ -208,6 +210,7 @@ int dispatch_hd(int hd, const void* q, const void* k, const void* v, const int* 
     case 16: return launch<T, 16>(q, k, v, table, lengths, out, B, H, KV, page, max_pages, softcap, sm_scale, stream);
     case 32: return launch<T, 32>(q, k, v, table, lengths, out, B, H, KV, page, max_pages, softcap, sm_scale, stream);
     case 64: return launch<T, 64>(q, k, v, table, lengths, out, B, H, KV, page, max_pages, softcap, sm_scale, stream);
+    case 120: return launch<T, 120>(q, k, v, table, lengths, out, B, H, KV, page, max_pages, softcap, sm_scale, stream);
     case 128: return launch<T, 128>(q, k, v, table, lengths, out, B, H, KV, page, max_pages, softcap, sm_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }

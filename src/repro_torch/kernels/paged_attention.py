@@ -18,35 +18,22 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 120, 128)
 _fn = None
 
 
 def _kernel():
     global _fn
     if _fn is None:
-        lib = _build.load("paged_attention")
-        fn = lib.repro_paged_attention
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_cuda_error_string)
+        _fn = _build.bind("paged_attention", "repro_paged_attention",
+                          [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                          + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     return _fn
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("lengths", lengths)):
-        if not t.is_cuda:
-            raise ValueError(f"paged_attention kernel: {name} is not on a CUDA device")
-        if t.device != q.device:
-            raise ValueError(f"paged_attention kernel: {name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"paged_attention kernel: {name} is not contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged_attention kernel: {name} is not 16-byte aligned")
+    _build.check_tensors("paged_attention", 16, q=q, k_pages=k_pages, v_pages=v_pages,
+                         page_table=page_table, lengths=lengths)
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_attention kernel: dtype {q.dtype} not supported")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
@@ -74,7 +61,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
     Every table entry of a page below ceil(lengths[b] / page) must be a valid
     pool page; entries past it are never read."""
     _check(q, k_pages, v_pages, page_table, lengths)
-    fn, err_str = _kernel()
+    fn = _kernel()
     b, h, hd = q.shape
     _, page, kvh, _ = k_pages.shape
     out = torch.empty_like(q)
@@ -83,9 +70,7 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
              page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              b, h, kvh, hd, page, page_table.shape[1], float(softcap), hd ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
-                           f"{err_str(err).decode()} ({err})")
+    _build.raise_on_error("paged_attention", err)
     paged_attention.launches += 1
     return out
 

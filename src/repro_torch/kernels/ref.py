@@ -10,6 +10,32 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+    """Materialized-softmax attention. q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd).
+
+    f32 math, output in q's dtype; a row with no valid key gives 0, as the
+    Hopper kernel, the JAX Pallas kernel and the JAX ``ref`` do."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    rep = h // kvh
+    qf = (q.float() * hd ** -0.5).reshape(b, sq, kvh, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None], p, torch.zeros_like(p))
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
+    return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *, softcap=0.0):
     """Decode attention over a paged pool, by gathering the pages.
 
@@ -37,3 +63,23 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *, softcap=0.0
     p = torch.where(valid.any(dim=-1)[:, None, None, None], p, torch.zeros_like(p))
     o = torch.einsum("bgrk,bkgd->bgrd", p, v_ctx.float())
     return o.reshape(b, h, hd).to(q.dtype)
+
+
+def flush_scores_ref(hits, clock, valid):
+    """Paper section 3.3.1, over all sets at once: distance_score =
+    hits * set_size + distance; flush score = set_size - 1 - rank(distance
+    score, ties by slot), -1 for an invalid slot. int32 arithmetic, which
+    wraps as JAX's does.
+
+    hits: (num_sets, set_size) int32; clock: (num_sets,) int32; valid:
+    (num_sets, set_size) bool -> (num_sets, set_size) int32."""
+    ns, ss = hits.shape
+    pos = torch.arange(ss, dtype=torch.int32, device=hits.device)[None, :]
+    dist = torch.remainder(pos - clock.int()[:, None], ss)   # non-negative, as jnp.mod
+    d = hits.int() * ss + dist
+    d = torch.where(valid, d, torch.full_like(d, torch.iinfo(torch.int32).max))
+    idx = torch.arange(ss, device=hits.device)
+    lt = ((d[:, None, :] < d[:, :, None])
+          | ((d[:, None, :] == d[:, :, None]) & (idx[None, None, :] < idx[None, :, None])))
+    fs = ss - 1 - lt.sum(dim=-1, dtype=torch.int32)
+    return torch.where(valid, fs, torch.full_like(fs, -1))

@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 NEG_INF = -1e30
 
@@ -177,7 +178,13 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
                         window: int = 0, causal: bool = True,
                         q_offset: int = 0,
                         dense_threshold: int | None = None) -> torch.Tensor:
-    """Full self-attention over x (B, S, D)."""
+    """Full self-attention over x (B, S, D).
+
+    On the card, attention at every length is the Hopper flash kernel
+    (``ops.flash_attention``), the counterpart of both ``_dense_attention``
+    and ``_chunked_attention`` (f32 math throughout, as the Pallas kernel).
+    On the CPU the JAX rule holds: dense up to ``dense_threshold``, chunked
+    past it."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
@@ -191,7 +198,11 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     if dense_threshold is None:
         dense_threshold = cfg.attn_dense_threshold
-    if s > dense_threshold:
+    if q.is_cuda:
+        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                  causal=causal, window=window, softcap=cfg.attn_softcap,
+                                  q_offset=q_offset)
+    elif s > dense_threshold:
         out = _chunked_attention(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_softcap)
     else:

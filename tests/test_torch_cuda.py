@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: kernel == plain version, and the
-serving engine through the kernel == dense decode. Skips without a card.
+"""The port's CUDA kernels on the card: kernel == plain version, the serving
+engine through the kernels == dense decode with plain attention, and the
+SA-cache twin on the card == on the CPU. Skips without a card.
 
   PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -10,6 +11,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config, reduced
+from repro_torch.core import sa_cache
+from repro_torch.kernels import flash_attention as cuda_flash
+from repro_torch.kernels import flush_score as cuda_flush
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as cuda_paged
 from repro_torch.models import transformer as T
@@ -25,6 +29,7 @@ PAGED_CASES = [
     (1, 16, 8, 64, 64, 4, 8),
     (4, 32, 8, 128, 16, 64, 65),      # qwen3-8b decode
     (2, 4, 2, 16, 8, 4, 16),          # reduced configs (hd 16)
+    (2, 32, 8, 120, 16, 8, 32),       # h2o-danube decode (hd 120)
 ]
 TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
 
@@ -75,7 +80,77 @@ def test_kernel_length_zero_gives_zero(card, dtype):
                                atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
-def test_engine_through_kernel_matches_dense_decode(card):
+FLASH_CASES = [
+    # b, sq, skv, h, kv, hd, causal, window, softcap, q_offset
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0, 0),      # tests/test_kernels.py FLASH_CASES
+    (1, 256, 256, 8, 8, 64, True, 64, 50.0, 0),
+    (2, 64, 192, 4, 1, 128, False, 0, 0.0, 0),
+    (1, 100, 100, 2, 2, 32, True, 0, 0.0, 0),
+    (1, 16, 144, 6, 6, 64, True, 0, 0.0, 0),
+    (3, 128, 128, 8, 4, 16, True, 32, 0.0, 0),
+    (1, 16, 64, 4, 4, 32, True, 0, 0.0, 48),       # q_offset tail
+    (1, 300, 300, 32, 8, 120, True, 4096, 0.0, 0),  # h2o-danube (hd 120, window 4096)
+    (1, 300, 300, 4, 2, 120, True, 70, 0.0, 0),    # hd 120, tiles skipped by the window
+    (1, 520, 520, 32, 8, 128, True, 0, 0.0, 0),    # qwen3-8b heads
+    (1, 8, 16, 2, 1, 16, True, 4, 0.0, 16),        # rows with no key give 0
+]
+FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", list(FLASH_TOLS))
+def test_flash_kernel_matches_plain_version(card, case, dtype):
+    b, sq, skv, h, kv, hd, causal, window, cap, q_offset = case
+    rng = np.random.default_rng(FLASH_CASES.index(case))
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(
+            getattr(torch, dtype))
+
+    q, k, v = t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hd)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    before = cuda_flash.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert cuda_flash.flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out.float(), want.float(), atol=FLASH_TOLS[dtype],
+                               rtol=FLASH_TOLS[dtype])
+
+
+@pytest.mark.parametrize("ns,ss", [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12),
+                                   (256, 2), (37, 64), (2100, 12), (131072, 12)])
+def test_flush_kernel_matches_plain_version(card, ns, ss):
+    rng = np.random.default_rng(ns + ss)
+    hits = torch.from_numpy(rng.integers(0, 15, size=(ns, ss)).astype(np.int32)).cuda()
+    clock = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=(ns,)).astype(np.int32)).cuda()
+    valid = torch.from_numpy(rng.random((ns, ss)) > 0.3).cuda()
+    before = cuda_flush.flush_scores.launches
+    out = ops.flush_scores(hits, clock, valid)
+    torch.cuda.synchronize()
+    assert cuda_flush.flush_scores.launches == before + 1
+    assert torch.equal(out, ref.flush_scores_ref(hits, clock, valid))
+
+
+def test_select_flush_candidates_on_card_equals_cpu(card):
+    rng = np.random.default_rng(5)
+    ns, ss = 4096, 12
+    valid = rng.random((ns, ss)) > 0.2
+    state = sa_cache.CacheState(
+        tags=torch.from_numpy(np.where(valid, np.arange(ns * ss).reshape(ns, ss), -1)
+                              .astype(np.int32)),
+        hits=torch.from_numpy(rng.integers(0, 16, size=(ns, ss)).astype(np.int32)),
+        dirty=torch.from_numpy((rng.random((ns, ss)) > 0.4) & valid),
+        clock=torch.from_numpy(rng.integers(0, ss, size=(ns,)).astype(np.int32)))
+    on_card = sa_cache.CacheState(*(None if x is None else x.cuda() for x in state))
+    before = cuda_flush.flush_scores.launches
+    got = sa_cache.select_flush_candidates(on_card, 6, 2)
+    assert cuda_flush.flush_scores.launches == before + 1
+    for g, w in zip(got, sa_cache.select_flush_candidates(state, 6, 2)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_engine_through_kernel_matches_dense_decode(card, monkeypatch):
     cfg = reduced(get_config("tinyllama-1.1b"))
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), card)
     eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=4, set_size=3,
@@ -84,11 +159,14 @@ def test_engine_through_kernel_matches_dense_decode(card):
     prompts = [[int(x) for x in rng.integers(1, 250, int(rng.integers(3, 20)))]
                for _ in range(6)]
     rids = [eng.submit(p, max_new=24) for p in prompts]
-    before = cuda_paged.paged_attention.launches
+    before = (cuda_paged.paged_attention.launches, cuda_flash.flash_attention.launches)
     eng.run(800)
     eng.close()
-    assert cuda_paged.paged_attention.launches > before
+    assert cuda_paged.paged_attention.launches > before[0]
+    assert cuda_flash.flash_attention.launches >= before[1] + cfg.n_layers * len(prompts)
     assert eng.stats()["preemptions"] > 0
+    # the reference prefills with the plain attention in the kernel's place
+    monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_ref)
     with torch.no_grad():
         for rid, p in zip(rids, prompts):
             last, cache = T.prefill(params, torch.tensor([p], device=card), cfg, max_seq=128)

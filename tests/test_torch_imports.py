@@ -35,12 +35,19 @@ def test_kernel_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
     code = (
         "import sys, torch\n"
         "import repro_torch.kernels.ops as ops\n"
-        "from repro_torch.kernels import _build, paged_attention as pa\n"
+        "from repro_torch.kernels import _build, flash_attention as fa, flush_score as fs\n"
+        "from repro_torch.kernels import paged_attention as pa\n"
+        "import repro_torch.core.sa_cache, repro_torch.launch.quickstart\n"
         "q = torch.zeros(1, 2, 16); kp = torch.zeros(2, 4, 1, 16)\n"
         "out = ops.paged_attention(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),\n"
         "                          torch.ones(1, dtype=torch.int32))\n"
         "assert out.shape == (1, 2, 16)\n"
+        "assert ops.flash_attention(q[:, None], kp[:1], kp[:1]).shape == (1, 1, 2, 16)\n"
+        "hits = torch.zeros(3, 12, dtype=torch.int32)\n"
+        "assert ops.flush_scores(hits, hits[:, 0], hits == 0).shape == (3, 12)\n"
         "assert not _build._loaded and pa._fn is None and pa.paged_attention.launches == 0\n"
+        "assert fa._fn is None and fs._fn is None\n"
+        "assert fa.flash_attention.launches == fs.flush_scores.launches == 0\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
         "try:\n"
         "    _build.nvcc_path()\n"

@@ -15,6 +15,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import LayerSpec
 from repro_torch.convert import params_from_jax, tensor_from_numpy
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -142,6 +143,32 @@ def test_multihead_attention_dense_and_chunked_paths_match_jax():
 # ---------------------------------------------------------------------------
 # the model (5e-3, as tests/test_models.py)
 # ---------------------------------------------------------------------------
+
+@pytest.fixture
+def flash_route(monkeypatch):
+    """The card's attention route, on the CPU: ``multihead_attention`` goes
+    through ``ops.flash_attention`` at every length (its plain version here,
+    the Hopper kernel on the card) instead of the dense/chunked rule."""
+    def via_flash(q, k, v, *, causal, window, softcap, q_offset=0, **_):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+
+    monkeypatch.setattr(L, "_dense_attention", via_flash)
+    monkeypatch.setattr(L, "_chunked_attention", via_flash)
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_prefill_through_flash_route_matches_jax(arch, flash_route):
+    """Prefill as it runs on the card (flash attention in every layer): the
+    last-position logits and the K/V cache equal JAX's prefill."""
+    jcfg, jparams, cfg, tparams = _models(arch)
+    toks = np.random.default_rng(4).integers(0, cfg.vocab, size=(2, 20))
+    last, cache = T.prefill(tparams, torch.from_numpy(toks), cfg, max_seq=32)
+    jlast, jcache = JT.prefill(jparams, jnp.asarray(toks), jcfg, max_seq=32)
+    _close(last, jlast, 5e-3)
+    for lc, jlc in zip(cache.layers, jcache.layers):
+        _close(lc["k"], jlc["k"], 5e-3)
+        _close(lc["v"], jlc["v"], 5e-3)
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_prefill_decode_match_jax(arch):

@@ -13,6 +13,8 @@ from repro.serving import ServeEngine as JaxServeEngine
 from repro.serving.kv_pool import PagedAllocator as JaxPagedAllocator
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.kernels import ops
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.serving import ServeEngine
 from repro_torch.serving.kv_pool import PagedAllocator
@@ -65,6 +67,31 @@ def test_engine_tokens_match_jax_engine(tiny_model):
     eng.run(200)
     jeng.run(200)
     for rid, jrid in zip(rids, jrids):
+        assert eng.result(rid).out == jeng.result(jrid).out
+    eng.close()
+    jeng.close()
+
+
+def test_engine_through_flash_route_matches_jax_engine(tiny_model, monkeypatch):
+    """The engine with prefill attention as it runs on the card (through
+    ``ops.flash_attention``, its plain version here) emits the JAX engine's
+    greedy tokens."""
+    def via_flash(q, k, v, *, causal, window, softcap, q_offset=0, **_):
+        return ops.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap, q_offset=q_offset)
+
+    monkeypatch.setattr(L, "_dense_attention", via_flash)
+    monkeypatch.setattr(L, "_chunked_attention", via_flash)
+    cfg, params, jcfg, jparams = tiny_model
+    eng = _engine(cfg, params, max_batch=2, page_size=8, num_sets=4, set_size=3)
+    jeng = JaxServeEngine(jcfg, jparams, max_batch=2, page_size=8, num_sets=4,
+                          set_size=3)
+    rids = [eng.submit(p, max_new=12) for p in PROMPTS]
+    jrids = [jeng.submit(p, max_new=12) for p in PROMPTS]
+    eng.run(300)
+    jeng.run(300)
+    for rid, jrid in zip(rids, jrids):
+        assert eng.result(rid).state == "done"
         assert eng.result(rid).out == jeng.result(jrid).out
     eng.close()
     jeng.close()
