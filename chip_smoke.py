@@ -8,16 +8,19 @@ last line:
 
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    compile the three hand-written CUDA kernels from ``src/``, one
-              nvcc each, all at once (timed; registers and spills);
+              nvcc each, all at once (timed; registers and spills; fails if
+              the wgmma flash kernel spills);
   3. kernels  each kernel against its plain PyTorch version on the card:
               paged attention on the kernel tests' shapes, hd 120 and the
               serving shape (fp32 2e-5, bf16 3e-2, a length-0 row gives 0);
               flash attention on the kernel tests' cases, the q_offset tail,
-              hd 120 with window 4096 and qwen3-8b's prefill shape (fp32
-              2e-5, bf16 2e-2); flush scores exactly equal on the kernel
-              tests' grid and at 2,100 and 131,072 sets of 12; times of each
-              kernel, its plain version and a PyTorch library call, and the
-              bound;
+              hd 120 with window 4096 and the wgmma kernel's edges (fp32
+              2e-5, bf16 2e-2, each launched as the design it expects, two
+              runs bitwise equal), then at qwen3-8b's prefill shape and
+              gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
+              bound); flush scores exactly equal on the kernel tests' grid
+              and at 2,100 and 131,072 sets of 12; times of each kernel,
+              its plain version and a PyTorch library call, and the bound;
   4. exact    qwen3-8b at full width in fp32, depth cut to 2 layers: the
               serving engine (flash prefill, paged decode) under pool pressure
               must emit the greedy tokens of prefill + decode with plain
@@ -27,10 +30,13 @@ last line:
               layer per request; the first decode step's logits with the
               kernel must match those with the plain version; tokens/s and
               the median decode-step time;
-  6. prefill  the same model and weights: 2 requests of 4,096-token prompts
+  6. prefill  the same model and weights: 3 requests of 4,096-token prompts
               through the engine (page 16, 32 x 12 sets); each flash launch
-              of the first prefill held to the plain version, its logits to
-              those of a plain-attention prefill; time to first token;
+              of the first prefill held to the plain version and launched
+              as wgmma, its logits to those of a plain-attention prefill;
+              time to first token of the second; the third under
+              torch.profiler: device time of flash, GEMMs, other elementwise
+              work and page writes, and the device's busy share;
   7. sa-cache the SA-cache twin: the quickstart twin on the card, and
               ``select_flush_candidates`` at 131,072 x 12 on the card equal
               to the CPU's;
@@ -45,9 +51,11 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -81,8 +89,24 @@ FLASH_CASES = [
     (3, 128, 128, 8, 4, 16, True, 32, 0.0, 0),
     (1, 16, 64, 4, 4, 32, True, 0, 0.0, 48),       # the q_offset tail test
     (1, 4608, 4608, 32, 8, 120, True, 4096, 0.0, 0),   # h2o-danube: hd 120, window 4096
+    # the wgmma kernel's edges (tests/test_torch_cuda.py WGMMA_CASES)
+    (1, 63, 1000, 4, 2, 128, True, 0, 0.0, 0),     # ragged against the 64- and 128-row tiles
+    (1, 129, 65, 4, 2, 128, False, 0, 0.0, 0),
+    (1, 1000, 127, 4, 2, 128, False, 0, 0.0, 0),
+    (1, 1, 1000, 4, 2, 128, False, 0, 0.0, 0),
+    (1, 127, 1000, 8, 2, 128, True, 0, 0.0, 873),  # q_offset tail
+    (1, 1000, 1000, 4, 2, 128, True, 100, 0.0, 0),  # window not a multiple of the tile
+    (1, 1000, 1000, 4, 2, 128, True, 0, 50.0, 0),   # softcap 50 (gemma2)
+    (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197),    # rows 6.. have no valid key: 0
+    (1, 300, 300, 8, 1, 128, True, 0, 0.0, 0),      # GQA 8
+    (3, 300, 300, 8, 4, 128, True, 0, 0.0, 0),      # B 3, GQA 2
+    (2, 1000, 1000, 4, 2, 64, True, 100, 50.0, 0),  # hd 64
+    (1, 1000, 1000, 4, 1, 120, True, 100, 0.0, 0),  # hd 120, GQA 4
 ]
+NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
+WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
 FLASH_SLICE = (1, 4096, 32, 8, 128)       # qwen3-8b prefill: B, S, H, KV, hd (causal, bf16)
+GEMMA2_SWA = (1, 8192, 32, 16, 128, 4096, 50.0)  # gemma2-27b sliding layer: ..., window, softcap
 FLUSH_GRID = [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12), (256, 2),   # tests
               (2100, 12),       # qwen3-8b's KV pool on an 80 GB card: 2.36 MB pages
               (131072, 12)]     # serving scale, 10^5+ sets (kernels/flush_score.py)
@@ -263,10 +287,11 @@ def flash_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> 
 
 
 def phase_flash(torch, seed: int, card: str) -> dict:
-    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(seed + 1)
+    by_design = flash_mod.flash_attention.launches_by_design
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -277,48 +302,94 @@ def phase_flash(torch, seed: int, card: str) -> dict:
                        .to("cuda", dtype) for shape in
                        ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
             kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+            kind = "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+            before = by_design[kind]
             out = ops.flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
+            launched = by_design[kind] - before
+            same = bool(torch.equal(out, ops.flash_attention(q, k, v, **kw)))
             want = ref.flash_attention_ref(q, k, v, **kw)
             err = (out.float() - want.float()).abs().max().item()
             ok = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+            if case == NO_KEY_CASE:
+                ok = ok and bool((out[:, 6:] == 0).all())
             errs[dtype] = max(errs[dtype], err)
             n += 1
-            print(f"[kernels] flash_attention {case} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-                  f"(tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+            print(f"[kernels] flash_attention {case} {str(dtype)[6:]} ({kind}): max_abs_err "
+                  f"{err:.3e} (tol {tol:g}), rerun bitwise {'equal' if same else 'DIFFERENT'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
             check(ok, f"flash_attention {case} {dtype}: kernel disagrees with plain version")
+            check(launched == 1, f"flash_attention {case} {dtype}: not launched as {kind}")
+            check(same, f"flash_attention {case} {dtype}: two runs differ")
             del q, k, v, out, want
             free_memory(torch)
 
-    # times at the prefill path's shape: qwen3-8b, one 4,096-token prompt,
-    # causal, bf16; the library yardstick is PyTorch's fused SDPA on (B, H, S, hd)
-    b, s, h, kv, hd = FLASH_SLICE
-    q, k, v = (torch.randn(shape, device="cuda").to(torch.bfloat16)
-               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
-    kernel_ms = graph_ms(torch, lambda i: ops.flash_attention(q, k, v), 3, reps=5)
-    plain_ms = graph_ms(torch, lambda i: ref.flash_attention_ref(q, k, v), 1, reps=3)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    library_ms = graph_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), 3, reps=5)
-    lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-               .transpose(1, 2).float() - ref.flash_attention_ref(q, k, v).float()
-               ).abs().max().item()
-    flops = 4 * b * h * hd * flash_pairs(s, s, True, 0, 0)      # q.k and p.v
-    moved = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)      # q, out, k, v in bf16
+    slice_t = time_flash(torch, card, FLASH_SLICE, window=0, softcap=0.0, with_plain=True)
+    swa = time_flash(torch, card, GEMMA2_SWA[:5], window=GEMMA2_SWA[5], softcap=GEMMA2_SWA[6],
+                     with_plain=False)
+    return {"cases": n, "max_err_fp32": errs[torch.float32],
+            "max_err_bf16": errs[torch.bfloat16], **slice_t, "gemma2_swa": swa}
+
+
+def time_flash(torch, card: str, shape, *, window: int, softcap: float, with_plain: bool) -> dict:
+    """Device time of the flash kernel at one causal bf16 prefill shape,
+    beside its bound and PyTorch's fused SDPA on (B, H, S, hd) (with the
+    window as a mask; SDPA has no softcap), and, at S 4096, the plain
+    version. The kernel is first held to the plain version on 4 q heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    b, s, h, kv, hd = shape
+    q, k, v = (torch.randn(sh, device="cuda").to(torch.bfloat16)
+               for sh in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    rep = h // kv
+    out = ops.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q[:, :, :2 * rep].contiguous(), k[:, :, :2].contiguous(),
+                                   v[:, :, :2].contiguous(), **kw)
+    err = (out[:, :, :2 * rep].float() - want.float()).abs().max().item()
+    check(bool(torch.allclose(out[:, :, :2 * rep].float(), want.float(), atol=FLASH_BF16_TOL,
+                              rtol=FLASH_BF16_TOL)),
+          f"flash_attention at {shape} window {window}: kernel disagrees with plain version")
+    del out, want
+    kernel_ms = graph_ms(torch, lambda i: ops.flash_attention(q, k, v, **kw), 3, reps=5)
+    plain_ms = (graph_ms(torch, lambda i: ref.flash_attention_ref(q, k, v, **kw), 1, reps=3)
+                if with_plain else None)
+    qt = q.transpose(1, 2).contiguous()
+    if window:
+        # SDPA's flash backend takes no mask: the window goes in as a boolean
+        # mask over K/V expanded to every q head
+        kt, vt = (x.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous() for x in (k, v))
+        pos = torch.arange(s, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        library = lambda i: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        library_name = "scaled_dot_product_attention(attn_mask=causal window), no softcap"
+    else:
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        library = lambda i: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                           enable_gqa=True)
+        library_name = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
+    library_ms = graph_ms(torch, library, 3, reps=5)
+    flops = 4 * b * h * hd * flash_pairs(s, s, True, window, 0)      # q.k and p.v
+    moved = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)           # q, out, k, v in bf16
     bw = hbm_bytes_per_s(card)
     bound_s = max(moved / bw, flops / BF16_PEAK_FLOPS)
     bound_by = "bytes" if moved / bw >= flops / BF16_PEAK_FLOPS else "operations"
-    print(f"[kernels] flash_attention at B{b} S{s} H{h} KV{kv} hd{hd} causal bf16: device time "
-          f"(CUDA graph replay) kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"sdpa {library_ms:.3f} ms (err vs plain {lib_err:.2e}), bound {bound_s * 1e3:.4f} ms "
-          f"by {bound_by} ({flops:.3e} FLOP at {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; {moved} B) "
-          f"= {flops / kernel_ms / 1e9:.1f} TFLOP/s achieved on {card}", flush=True)
+    tflops = flops / kernel_ms / 1e9
+    print(f"[kernels] flash_attention at B{b} S{s} H{h} KV{kv} hd{hd} causal window {window} "
+          f"softcap {softcap:g} bf16 (wgmma): device time (CUDA graph replay) kernel "
+          f"{kernel_ms:.4f} ms = {tflops:.1f} TFLOP/s, "
+          f"plain {'%.3f ms' % plain_ms if plain_ms else 'not timed'}, sdpa {library_ms:.4f} ms "
+          f"(kernel / sdpa {kernel_ms / library_ms:.2f}x), bound {bound_s * 1e3:.4f} ms by "
+          f"{bound_by} ({flops:.4e} FLOP at {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; {moved} B) "
+          f"(kernel / bound {kernel_ms / (bound_s * 1e3):.2f}x); plain vs kernel on 4 q heads "
+          f"max_abs_err {err:.3e} on {card}", flush=True)
     del q, k, v, qt, kt, vt
     free_memory(torch)
-    return {"cases": n, "max_err_fp32": errs[torch.float32],
-            "max_err_bf16": errs[torch.bfloat16], "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "flops": flops}
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": library_name, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
+            "flops": flops, "tflops": tflops, "shape": [b, s, h, kv, hd], "window": window,
+            "softcap": softcap}
 
 
 def flush_inputs(torch, ns: int, ss: int, rng, device="cuda"):
@@ -425,10 +496,17 @@ def phase_exact(torch, seed: int, kernels: dict) -> dict:
 def zero_launches(kernels: dict) -> None:
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_design"):
+            fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def read_launches(kernels: dict) -> dict:
     return {name: fn.launches for name, fn in kernels.items()}
+
+
+def read_designs(kernels: dict) -> dict:
+    return {name: dict(fn.launches_by_design) for name, fn in kernels.items()
+            if hasattr(fn, "launches_by_design")}
 
 
 # ---------------------------------------------------------------------------
@@ -604,21 +682,28 @@ class PrefillProbe:
     """Stands in for ``transformer.prefill`` while the engine runs.
 
     The first call holds each flash launch to the plain version on the same
-    inputs and keeps its last-position logits; every call's time (to a
-    synchronize) is kept."""
+    inputs, counts the launches of each flash design, and keeps its
+    last-position logits; every call's time (to a synchronize) is kept. The
+    forward pass of a profiled row is marked ``prefill.forward``."""
 
     def __init__(self, torch, prefill):
         self.torch, self.prefill, self.ms, self.first = torch, prefill, [], None
+        self.mark = False
 
     def __call__(self, *args, **kw):
         torch = self.torch
+        from torch.profiler import record_function
+        from repro_torch.kernels import flash_attention as flash_mod
         from repro_torch.kernels import ops, ref
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if self.first is not None:
-            out = self.prefill(*args, **kw)
+            with record_function("prefill.forward") if self.mark else contextlib.nullcontext():
+                out = self.prefill(*args, **kw)
+                torch.cuda.synchronize()
         else:
             kernel_fn, calls = ops.flash_attention, []
+            designs = dict(flash_mod.flash_attention.launches_by_design)
 
             def checked(q, k, v, **kw2):
                 got = kernel_fn(q, k, v, **kw2)
@@ -634,16 +719,72 @@ class PrefillProbe:
                 ops.flash_attention = kernel_fn
             self.first = {"calls": len(calls), "calls_ok": all(ok for _, ok in calls),
                           "call_max_abs_err": max(e for e, _ in calls),
+                          "launches_by_design": {
+                              d: n - designs[d] for d, n in
+                              flash_mod.flash_attention.launches_by_design.items()},
                           "logits": out[0].float().clone()}
         torch.cuda.synchronize()
         self.ms.append((time.perf_counter() - t0) * 1e3)
         return out
 
 
+class RowProbe:
+    """Stands in for the engine's ``_prefill_row`` (the forward pass, then
+    the page writes of K/V into the pool): times each call to a synchronize,
+    and runs call ``profile_at`` under torch.profiler."""
+
+    def __init__(self, torch, row_fn, probe: PrefillProbe, profile_at: int):
+        self.torch, self.row_fn, self.probe, self.profile_at = torch, row_fn, probe, profile_at
+        self.ms, self.prof = [], None
+
+    def __call__(self, *args, **kw):
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(self.ms) == self.profile_at:
+            self.probe.mark = True
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                self.row_fn(*args, **kw)
+                torch.cuda.synchronize()
+            self.probe.mark = False
+            self.prof = prof
+        else:
+            self.row_fn(*args, **kw)
+            torch.cuda.synchronize()
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+
+
+def prefill_split(torch, prof) -> dict | None:
+    """Device time of a profiled prefill row by kind: kernels that start
+    before the end of the ``prefill.forward`` range are the forward pass
+    (flash, GEMM, other elementwise work; it ends in a synchronize), those
+    after it the page writes. None when the profiler saw no device time."""
+    evs = prof.events()
+    fwd_end = max((e.time_range.end for e in evs if e.name == "prefill.forward"), default=None)
+    split = {"flash": 0.0, "gemm": 0.0, "other_elementwise": 0.0, "page_writes": 0.0}
+    launches = dict.fromkeys(split, 0)
+    for e in evs:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name.startswith("prefill"):
+            continue
+        name = e.name
+        key = ("page_writes" if fwd_end is not None and e.time_range.start >= fwd_end else
+               "flash" if "flash" in name else
+               "gemm" if any(g in name for g in ("gemm", "nvjet", "cutlass", "xmma")) else
+               "other_elementwise")
+        split[key] += e.time_range.elapsed_us() / 1e3
+        launches[key] += 1
+    if fwd_end is None or not sum(split.values()):
+        return None
+    return {"device_ms": split, "launches": launches, "busy_ms": sum(split.values())}
+
+
 def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> dict:
-    """Two 4,096-token prompts through the engine at full width and depth.
+    """Three 4,096-token prompts through the engine at full width and depth.
     The pool (32 sets x 12 pages of 16 tokens, the paper's set size) holds
-    one such request at a time, so the second waits for the first to finish."""
+    one such request at a time, so each waits for the one before to finish.
+    The first prefill is checked, the second timed (time to first token),
+    the third profiled."""
     from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
@@ -653,7 +794,7 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     eng = ServeEngine(cfg, params, max_batch=2, page_size=page, num_sets=num_sets,
                       set_size=set_size, max_pages=n_pages + 7, device="cuda")
     rng = np.random.default_rng(seed + 6)
-    prompts = [[int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)] for _ in range(2)]
+    prompts = [[int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)] for _ in range(3)]
     # the reference: the first prompt's prefill with plain attention
     kernel_fn = ops.flash_attention
     with torch.no_grad():
@@ -667,47 +808,76 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     free_memory(torch)
 
     probe = PrefillProbe(torch, T.prefill)
+    rows = RowProbe(torch, eng._prefill_row, probe, profile_at=2)
+    eng._prefill_row = rows
     rids = [eng.submit(p, max_new=PREFILL_NEW) for p in prompts]
     zero_launches(kernels)
     t0 = time.perf_counter()
     try:
         T.prefill = probe
-        eng.run(max_steps=200)
+        eng.run(max_steps=300)
     finally:
         T.prefill = probe.prefill
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = read_launches(kernels)
+    designs = read_designs(kernels)
     eng.close()
     first = probe.first
     got = first["logits"]
     rel_l2 = ((got - plain).norm() / plain.norm()).item()
     done = sum(eng.result(r).state == "done" for r in rids)
+    check(len(probe.ms) == 3 and len(rows.ms) == 3, f"prefill: {len(probe.ms)} prefills, not 3")
+    ttft = probe.ms[1]
+    split = prefill_split(torch, rows.prof)
     res = {"requests": len(rids), "done": done, "prompt_tokens": PREFILL_TOKENS,
-           "prefill_ms": probe.ms, "ttft_ms": probe.ms[-1], "seconds": dt,
-           "launches": launches, "first_prefill": {k: v for k, v in first.items()
-                                                   if k != "logits"},
+           "prefill_ms": probe.ms, "prefill_row_ms": rows.ms, "ttft_ms": ttft, "seconds": dt,
+           "launches": launches, "launches_by_design": designs,
+           "first_prefill": {k: v for k, v in first.items() if k != "logits"},
            "logits_rel_l2": rel_l2, "logits_max_abs_err": (got - plain).abs().max().item(),
-           "argmax_equal": bool(got.argmax() == plain.argmax()), "stats": eng.stats()}
-    print(f"[prefill] first prefill: {first['calls']} flash launches vs plain version on the "
-          f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}) "
-          f"{'ok' if first['calls_ok'] else 'FAIL'}; last-position logits with the kernel vs a "
-          f"plain-attention prefill: relative L2 {rel_l2:.3e} (tol {BF16_TOL:g}), max_abs_err "
-          f"{res['logits_max_abs_err']:.3e}, argmax equal {res['argmax_equal']}", flush=True)
+           "argmax_equal": bool(got.argmax() == plain.argmax()), "stats": eng.stats(),
+           "profile": split}
+    print(f"[prefill] first prefill: {first['calls']} flash launches {first['launches_by_design']} "
+          f"vs plain version on the same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol "
+          f"{BF16_TOL:g}) {'ok' if first['calls_ok'] else 'FAIL'}; last-position logits with the "
+          f"kernel vs a plain-attention prefill: relative L2 {rel_l2:.3e} (tol {BF16_TOL:g}), "
+          f"max_abs_err {res['logits_max_abs_err']:.3e}, argmax equal {res['argmax_equal']}",
+          flush=True)
     print(f"[prefill] qwen3-8b bf16, {len(rids)} requests x {PREFILL_TOKENS}-token prompts, "
           f"{PREFILL_NEW} new tokens, page {page}, {num_sets} x {set_size} sets: {done}/"
           f"{len(rids)} done in {dt:.2f} s; prefill (time to first token once admitted) "
-          f"{probe.ms[-1]:.1f} ms (first, with the checks: {probe.ms[0]:.1f} ms); launches "
-          f"{launches}; stats {eng.stats()} on {card}", flush=True)
+          f"{ttft:.1f} ms (first, with the checks: {probe.ms[0]:.1f} ms; third, profiled: "
+          f"{probe.ms[2]:.1f} ms); prefill + page writes {rows.ms[1]:.1f} ms; launches "
+          f"{launches} {designs}; stats {eng.stats()} on {card}", flush=True)
+    if split is None:
+        print("[profile] the profiler recorded no device time for the prefill: its split is "
+              "not measured", flush=True)
+    else:
+        dev = split["device_ms"]
+        fwd = dev["flash"] + dev["gemm"] + dev["other_elementwise"]
+        res["busy_share_forward"] = fwd / ttft
+        res["busy_share_page_writes"] = dev["page_writes"] / max(rows.ms[1] - ttft, 1e-9)
+        print(f"[profile] third prefill (profiled), device time: flash {dev['flash']:.2f} ms, "
+              f"GEMM {dev['gemm']:.2f} ms, other elementwise {dev['other_elementwise']:.2f} ms, "
+              f"page writes {dev['page_writes']:.2f} ms ({split['launches']} launches); "
+              f"forward busy {fwd:.2f} ms = {100 * res['busy_share_forward']:.1f} % of the "
+              f"unprofiled time to first token {ttft:.1f} ms; page writes busy "
+              f"{100 * res['busy_share_page_writes']:.1f} % of their unprofiled "
+              f"{rows.ms[1] - ttft:.1f} ms on {card}", flush=True)
     check(first["calls_ok"] and first["calls"] == cfg.n_layers,
           "prefill: a flash launch of the first prefill differs from the plain version")
+    check(first["launches_by_design"] == {"simt": 0, "wgmma": cfg.n_layers},
+          f"prefill: the first prefill's flash launches were {first['launches_by_design']}, "
+          f"not {cfg.n_layers} wgmma")
     check(rel_l2 <= BF16_TOL, "prefill: logits with the kernel differ from plain attention's")
     check(done == len(rids) and all(len(eng.result(r).out) == PREFILL_NEW for r in rids),
           f"prefill: only {done}/{len(rids)} requests finished")
     check(launches["flash_attention"] == cfg.n_layers * len(rids),
           f"prefill: {launches['flash_attention']} flash launches for {len(rids)} prefills")
+    check(designs["flash_attention"]["wgmma"] == cfg.n_layers * len(rids),
+          f"prefill: flash launches by design {designs['flash_attention']}")
     check(launches["paged_attention"] > 0, "prefill: no paged launch in the decode steps")
-    del eng, probe, plain
+    del eng, probe, rows, plain
     free_memory(torch)
     return res
 
@@ -761,9 +931,29 @@ def _leaves(tree):
         yield tree
 
 
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each function in an nvcc ``-Xptxas -v`` log."""
+    funcs, cur = {}, None
+    for line in log.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", line)
+             or re.search(r"Function properties for (\S+)", line))
+        if m:
+            cur = m.group(1)
+            funcs.setdefault(cur, {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            funcs[cur].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            funcs[cur]["registers"] = int(m.group(1))
+    return funcs
+
+
 def build_all(torch, modules: dict) -> dict:
     """Build every kernel library at once, one nvcc each; print each one's
-    time and its registers and spills."""
+    time and its registers and spills. Fails if the wgmma flash kernel
+    spills."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
 
@@ -776,10 +966,16 @@ def build_all(torch, modules: dict) -> dict:
         seconds = dict(zip(modules, pool.map(build, modules.values())))
     for name, sec in seconds.items():
         print(f"[build] {name}.cu built and loaded in {sec:.1f} s", flush=True)
-        for line in _build.build_logs.get(name, "(library already built)").splitlines():
-            if "registers" in line or "spill" in line:
+        for line in _build.build_logs.get(name, "(no nvcc report)").splitlines():
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[build]   {line.strip()}")
-    return seconds
+    wgmma = {f: r for f, r in ptxas_report(_build.build_logs.get("flash_attention", "")).items()
+             if "flash_wgmma_kernel" in f}
+    print(f"[build] wgmma flash kernels: {wgmma}", flush=True)
+    check(len(wgmma) == 2, "build: no nvcc report for both wgmma flash kernels (hd 64, 128)")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+              for r in wgmma.values()), "build: the wgmma flash kernel spills registers")
+    return {"seconds": seconds, "wgmma_ptxas": wgmma}
 
 
 def main() -> int:
@@ -808,8 +1004,8 @@ def main() -> int:
 
     try:
         # 2. build
-        build_all(torch, {"paged_attention": paged_mod, "flash_attention": flash_mod,
-                          "flush_score": flush_mod})
+        build = build_all(torch, {"paged_attention": paged_mod, "flash_attention": flash_mod,
+                                  "flush_score": flush_mod})
         # 3. kernels
         paged = phase_kernels(torch, args.seed, card)
         flash = phase_flash(torch, args.seed, card)
@@ -845,11 +1041,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:84",
          "launches": prefill["launches"]["flash_attention"],
          "max_abs_err": max(flash["max_err_fp32"], flash["max_err_bf16"]),
+         "launches_by_design": prefill["launches_by_design"]["flash_attention"],
          "ms": flash["ms"], "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
          "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
-         "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True)",
+         "library": flash["library"], "tflops": flash["tflops"],
          "cases": flash["cases"], "max_err_fp32": flash["max_err_fp32"],
-         "max_err_bf16": flash["max_err_bf16"],
+         "max_err_bf16": flash["max_err_bf16"], "gemma2_swa": flash["gemma2_swa"],
          "serve_phase_launches": serve["launches"]["flash_attention"],
          "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"]},
         {**common, "name": "flush_scores",
@@ -862,7 +1059,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "kernels": line["kernels"], "serve": serve, "prefill": prefill,
+        {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
+         "prefill": prefill,
          "sa_cache": sa, "exact_launches": exact}, indent=1, default=str))
     print(json.dumps(line))
     print(smi)

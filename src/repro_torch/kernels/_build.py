@@ -5,7 +5,8 @@ alone into a shared library that ``ctypes`` loads: no PyTorch headers, no
 pybind, no ninja, a build of seconds. The library goes to ``build/torch_ext/``
 at the root of the checkout, named by a hash of the source, the flags, the
 nvcc binary and the torch version, so an edit rebuilds and an unchanged tree
-reuses the library. A file lock keeps concurrent builds apart.
+reuses the library; nvcc's report (registers, spills) is kept beside it.
+A file lock keeps concurrent builds apart.
 
 Nothing here runs at import: the first call of a kernel on a CUDA tensor
 builds it. A failed build raises. ``bind``, ``check_tensors`` and
@@ -29,7 +30,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}     # name -> nvcc output of this process's build
+build_logs: dict[str, str] = {}     # name -> nvcc output of the library's build
 
 
 def nvcc_path() -> str:
@@ -59,6 +60,7 @@ def load(name: str) -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / f"{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
+        log = lib.with_suffix(".log")
         if not lib.exists():
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -68,7 +70,10 @@ def load(name: str) -> ctypes.CDLL:
                 tmp.unlink(missing_ok=True)
                 raise RuntimeError(f"nvcc failed for {name}.cu "
                                    f"(exit {res.returncode}):\n{build_logs[name]}")
+            log.write_text(build_logs[name])
             os.replace(tmp, lib)
+        elif log.exists():
+            build_logs[name] = log.read_text()
     _loaded[name] = ctypes.CDLL(str(lib))
     return _loaded[name]
 

@@ -118,6 +118,69 @@ def test_flash_kernel_matches_plain_version(card, case, dtype):
                                rtol=FLASH_TOLS[dtype])
 
 
+RAGGED = (1, 63, 64, 65, 127, 129, 1000)     # both sides of the 64- and 128-row tiles
+WGMMA_CASES = [
+    # b, sq, skv, h, kv, hd, causal, window, softcap, q_offset
+    *[(1, sq, skv, 4, 2, 128, causal, 0, 0.0, 0)
+      for sq in RAGGED for skv in RAGGED for causal in (True, False)],
+    (1, 127, 1000, 8, 2, 128, True, 0, 0.0, 873),     # q_offset tail: rows at 873..999
+    (1, 1000, 1000, 4, 2, 128, True, 100, 0.0, 0),    # window not a multiple of the tile
+    (1, 1000, 1000, 4, 2, 128, True, 0, 50.0, 0),     # softcap 50 (gemma2)
+    (1, 1000, 1000, 4, 2, 128, True, 100, 50.0, 0),   # gemma2's sliding layer: both
+    (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197),      # rows 6.. have no valid key
+    *[(1, 300, 300, 8, kv, 128, True, 0, 0.0, 0) for kv in (8, 4, 2, 1)],   # GQA 1, 2, 4, 8
+    (3, 300, 300, 8, 2, 128, True, 0, 0.0, 0),        # B 3
+    (2, 300, 300, 4, 2, 64, True, 0, 0.0, 0),         # hd 64 (tinyllama)
+    (2, 1000, 1000, 4, 2, 64, True, 100, 50.0, 0),
+    (2, 300, 300, 4, 2, 120, True, 0, 0.0, 0),        # hd 120 (h2o-danube)
+    (1, 1000, 1000, 4, 1, 120, True, 100, 0.0, 0),
+]
+
+
+def _flash_inputs(case, dtype, seed):
+    b, sq, skv, h, kv, hd = case[:6]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda().to(dtype)
+
+    return t(b, sq, h, hd), t(b, skv, kv, hd), t(b, skv, kv, hd)
+
+
+def _flash_run(case, dtype, seed):
+    """Two launches on the same inputs, held to the plain version; returns
+    the launches of each design they made and the first output."""
+    causal, window, cap, q_offset = case[6:]
+    q, k, v = _flash_inputs(case, dtype, seed)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+    before = dict(cuda_flash.flash_attention.launches_by_design)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    made = {d: cuda_flash.flash_attention.launches_by_design[d] - before[d] for d in before}
+    again = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), "two runs on the same inputs differ"
+    tol = FLASH_TOLS[str(dtype)[6:]]
+    torch.testing.assert_close(out.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+                               atol=tol, rtol=tol)
+    return made, out
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_kernel_matches_plain_version(card, case):
+    made, out = _flash_run(case, torch.bfloat16, seed=WGMMA_CASES.index(case))
+    assert made == {"wgmma": 1, "simt": 0}
+    if case[7] == 4:                                  # the rows with no valid key
+        assert torch.all(out[:, 6:] == 0) and torch.all(out[:, :6] != 0)
+
+
+@pytest.mark.parametrize("case,dtype", [((2, 129, 129, 4, 2, 128, True, 0, 0.0, 0), "float32"),
+                                        ((2, 129, 129, 4, 2, 32, True, 0, 0.0, 0), "bfloat16")])
+def test_flash_simt_kernel_takes_fp32_and_small_heads(card, case, dtype):
+    made, _ = _flash_run(case, getattr(torch, dtype), seed=7)
+    assert made == {"wgmma": 0, "simt": 1}
+
+
 @pytest.mark.parametrize("ns,ss", [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12),
                                    (256, 2), (37, 64), (2100, 12), (131072, 12)])
 def test_flush_kernel_matches_plain_version(card, ns, ss):
