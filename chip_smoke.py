@@ -11,8 +11,13 @@ last line:
               nvcc each, all at once (timed; registers and spills; fails if
               the wgmma flash kernel spills);
   3. kernels  each kernel against its plain PyTorch version on the card:
-              paged attention on the kernel tests' shapes, hd 120 and the
-              serving shape (fp32 2e-5, bf16 3e-2, a length-0 row gives 0);
+              paged attention on the kernel tests' shapes, hd 120, the
+              serving shape and the split-K plan's edges (lengths 0, 1, a
+              split's last key, one past it, the table's end; fp32 2e-5,
+              bf16 3e-2, a length-0 row gives 0, two runs bitwise equal),
+              then timed at the serving shape, decode-4k (B 4, 4,098-4,104
+              keys) and decode-32k (B 1, 32,768 keys) beside a page gather +
+              SDPA and the bound, with the plan's splits and blocks;
               flash attention on the kernel tests' cases, the q_offset tail,
               hd 120 with window 4096 and the wgmma kernel's edges (fp32
               2e-5, bf16 2e-2, each launched as the design it expects, two
@@ -36,7 +41,9 @@ last line:
               as wgmma, its logits to those of a plain-attention prefill;
               time to first token of the second; the third under
               torch.profiler: device time of flash, GEMMs, other elementwise
-              work and page writes, and the device's busy share;
+              work and page writes, and the device's busy share; the median
+              decode step over the 4,097-4,104-key contexts, and the paged
+              kernel's device time per step (torch.profiler, 3 steps);
   7. sa-cache the SA-cache twin: the quickstart twin on the card, and
               ``select_flush_candidates`` at 131,072 x 12 on the card equal
               to the CPU's;
@@ -78,7 +85,22 @@ PAGED_CASES = [
     (1, 16, 8, 64, 64, 4, 8),
 ]
 DANUBE_CASE = (2, 32, 8, 120, 16, 8, 32)  # h2o-danube decode: hd 120
+SPLIT_CASES = [                           # 3+ splits on 132 SMs (tests/test_torch_cuda.py)
+    (6, 4, 2, 16, 8, 12, 64),             # hd 16, pages shorter than a tile
+    (6, 32, 8, 128, 16, 24, 160),         # qwen3-8b heads
+    (6, 32, 8, 120, 16, 24, 160),         # h2o-danube heads (hd 120)
+    (6, 32, 4, 64, 16, 24, 160),          # tinyllama heads (group 8)
+    (6, 16, 1, 64, 16, 16, 40),           # group 16: two chunks of q heads
+    (6, 4, 4, 32, 64, 6, 20),             # pages longer than a tile
+]
 SLICE_CASE = (4, 32, 8, 128, 16, 64, 65)  # qwen3-8b decode: B, H, KV, hd, page, max_pages, pool
+PAGED_HEADS = (32, 8, 128, 16)            # qwen3-8b decode: H, KV, hd, page
+PAGED_TIMED = {
+    # name: table, pool pages, lengths, pool copies rotated
+    "serve": (64, 65, [42, 52, 6, 59], 36),     # lengths like the serve phase's, a pool per layer
+    "decode-4k": (264, 1056, [4098, 4104, 4098, 4103], 4),   # the prefill phase's contexts
+    "decode-32k": (2048, 2048, [32768], 3),
+}
 FLASH_CASES = [
     # b, sq, skv, h, kv, hd, causal, window, softcap, q_offset
     (2, 128, 128, 4, 2, 64, True, 0, 0.0, 0),      # tests/test_kernels.py FLASH_CASES
@@ -187,9 +209,20 @@ def graph_ms(torch, fn, calls: int, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
+def split_edge_lengths(case) -> list[int]:
+    """0, 1, a split's last key, one past it, the table's end, and a row whose
+    later splits lie wholly past its length, under this card's plan."""
+    from repro_torch.kernels import paged_attention as paged_mod
+
+    b, h, kv, _, page, maxp, _ = case
+    per, _ = paged_mod._plan_splits(b, kv, h // kv, maxp, page, paged_mod._sm_count(0))
+    sk = per * page
+    return [0, 1, sk, sk + 1, maxp * page, 2 * sk - 1][:b]
+
+
 def phase_kernels(torch, seed: int, card: str) -> dict:
-    import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as paged_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -202,10 +235,16 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
         cases.append(("len0+page-edges", (5, 4, 2, 16, 8, 4, 16), dtype, [0, 1, 8, 9, 32], 0.0))
         cases.append(("h2o-danube-hd120", DANUBE_CASE, dtype, None, 0.0))
         cases.append(("slice-shape", SLICE_CASE, dtype, None, 0.0))
+        for case in SPLIT_CASES:
+            for cap in (0.0, 50.0):
+                cases.append((f"split-edges{case} softcap {cap:g}", case, dtype,
+                              split_edge_lengths(case), cap))
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for name, case, dtype, lengths, cap in cases:
         q, k, v, table, lens = paged_inputs(torch, case, dtype, rng, lengths)
         out = ops.paged_attention(q, k, v, table, lens, softcap=cap)
+        plan = paged_mod.paged_attention.last_plan
+        same = bool(torch.equal(out, ops.paged_attention(q, k, v, table, lens, softcap=cap)))
         torch.cuda.synchronize()
         want = ref.paged_attention_ref(q, k, v, table, lens, softcap=cap)
         err = (out.float() - want.float()).abs().max().item()
@@ -216,24 +255,68 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
             ok = ok and bool((out[zero_rows] == 0).all())
         errs[dtype] = max(errs[dtype], err)
         print(f"[kernels] paged_attention {name} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-              f"(tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
+              f"(tol {tol:g}), {plan['splits']} splits of {plan['pages_per_split']} pages, "
+              f"rerun bitwise {'equal' if same else 'DIFFERENT'} {'ok' if ok else 'FAIL'}",
+              flush=True)
         check(ok, f"paged_attention {name} {dtype}: kernel disagrees with plain version")
+        check(same, f"paged_attention {name} {dtype}: two runs differ")
 
-    # times at the serving path's shape: bf16, lengths like the serve phase's
-    # (prompt 4-48 + up to 24 new tokens); 36 pool copies, one per layer, so
-    # the K/V working set exceeds the 50 MB L2 as on the serving path
-    b, h, kv, hd, page, maxp, pool = SLICE_CASE
-    lens_np = rng.integers(4, 72, size=(b,))
-    q, _, _, table, lens = paged_inputs(torch, SLICE_CASE, torch.bfloat16, rng, lens_np)
-    layers = 36
-    kpools = torch.randn((layers, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
-    vpools = torch.randn((layers, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
-    kernel_eager_ms = time_ms(torch, lambda i: ops.paged_attention(
-        q, kpools[i % layers], vpools[i % layers], table, lens), 10 * layers)
-    kernel_ms = graph_ms(torch, lambda i: ops.paged_attention(
-        q, kpools[i % layers], vpools[i % layers], table, lens), layers)
+    timed = {name: time_paged(torch, card, rng, name, *shape)
+             for name, shape in PAGED_TIMED.items()}
+    return {"cases": len(cases), "max_err_fp32": errs[torch.float32],
+            "max_err_bf16": errs[torch.bfloat16], "timed": timed}
+
+
+def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: list[int],
+               copies: int) -> dict:
+    """Device time of the paged kernel at qwen3-8b's decode heads (H 32, KV 8,
+    hd 128, page 16, bf16) beside its plain version, a page gather + SDPA and
+    the bound by bytes. ``copies`` pools are rotated so that the K/V the
+    timed calls read exceeds the 50 MB L2 (at the serving shape, a pool per
+    layer). A table of ``b * maxp <= pool`` entries is a permutation of the
+    pool, so every key is a distinct row of memory. The kernel is first held
+    to the plain version, twice, bitwise equal."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import paged_attention as paged_mod
+
+    h, kv, hd, page = PAGED_HEADS
+    lens_np = np.asarray(lengths)
+    b = len(lengths)
+    ids = (rng.permutation(pool)[:b * maxp] if b * maxp <= pool
+           else rng.integers(0, pool, size=b * maxp))
+    table = torch.from_numpy(ids.reshape(b, maxp).astype(np.int32)).to("cuda")
+    lens = torch.from_numpy(lens_np.astype(np.int32)).to("cuda")
+    q = torch.randn((b, h, hd), device="cuda").to(torch.bfloat16)
+    kpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
+    vpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
+
+    out = ops.paged_attention(q, kpools[0], vpools[0], table, lens)
+    plan = dict(paged_mod.paged_attention.last_plan)
+    again = ops.paged_attention(q, kpools[0], vpools[0], table, lens)
+    want = ref.paged_attention_ref(q, kpools[0], vpools[0], table, lens)
+    err = (out.float() - want.float()).abs().max().item()
+    ok = bool(torch.allclose(out.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL))
+    same = bool(torch.equal(out, again))
+    print(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {BF16_TOL:g}), rerun "
+          f"bitwise {'equal' if same else 'DIFFERENT'}, plan {plan} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, f"paged_attention {name}: kernel disagrees with plain version")
+    check(same, f"paged_attention {name}: two runs differ")
+    if maxp >= 256:
+        check(plan["blocks"] >= 2 * paged_mod._sm_count(0),
+              f"paged_attention {name}: the plan launches only {plan['blocks']} blocks")
+    del out, again, want
+
+    calls = max(copies, 4)
+
+    def kernel(i):
+        return ops.paged_attention(q, kpools[i % copies], vpools[i % copies], table, lens)
+
+    kernel_ms = graph_ms(torch, kernel, calls)
+    eager_ms = time_ms(torch, kernel, 10 * calls)
     plain_ms = graph_ms(torch, lambda i: ref.paged_attention_ref(
-        q, kpools[i % layers], vpools[i % layers], table, lens), layers)
+        q, kpools[i % copies], vpools[i % copies], table, lens), min(calls, 4), reps=5)
     # library yardstick: gather the pages the longest row needs, then SDPA
     n_pages = -(-int(lens_np.max()) // page)
     s_ctx = n_pages * page
@@ -242,11 +325,11 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
     qs = q[:, :, None, :]
 
     def library(i):
-        kc = kpools[i % layers][idx].reshape(b, s_ctx, kv, hd).transpose(1, 2)
-        vc = vpools[i % layers][idx].reshape(b, s_ctx, kv, hd).transpose(1, 2)
+        kc = kpools[i % copies][idx].reshape(b, s_ctx, kv, hd).transpose(1, 2)
+        vc = vpools[i % copies][idx].reshape(b, s_ctx, kv, hd).transpose(1, 2)
         return F.scaled_dot_product_attention(qs, kc, vc, attn_mask=mask, enable_gqa=True)
 
-    library_ms = graph_ms(torch, library, layers)
+    library_ms = graph_ms(torch, library, min(calls, 4), reps=5)
     lib_err = (library(0)[:, :, 0].float()
                - ref.paged_attention_ref(q, kpools[0], vpools[0], table, lens).float()
                ).abs().max().item()
@@ -258,20 +341,19 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
     bw = hbm_bytes_per_s(card)
     bound_s = max(moved / bw, flops / BF16_PEAK_FLOPS)
     bound_by = "bytes" if moved / bw >= flops / BF16_PEAK_FLOPS else "operations"
-    print(f"[kernels] paged_attention at B{b} H{h} KV{kv} hd{hd} page{page} bf16, lengths "
-          f"{lens_np.tolist()}: device time (CUDA graph replay) kernel {kernel_ms * 1e3:.2f} us, "
-          f"plain {plain_ms * 1e3:.2f} us, "
-          f"gather+sdpa {library_ms * 1e3:.2f} us (err vs plain {lib_err:.2e}), bound "
-          f"{bound_s * 1e6:.3f} us by {bound_by} ({moved} B at {bw / 1e12:.2f} TB/s) "
-          f"on {card}", flush=True)
-    print(f"[kernels] paged_attention eager call (host launch included): "
-          f"{kernel_eager_ms * 1e3:.2f} us on {card}", flush=True)
+    print(f"[kernels] paged_attention {name} at B{b} H{h} KV{kv} hd{hd} page{page} bf16, table "
+          f"{maxp}, lengths {lens_np.tolist()}: device time (CUDA graph replay) kernel "
+          f"{kernel_ms * 1e3:.2f} us (eager, host launch included: {eager_ms * 1e3:.2f} us), "
+          f"plain {plain_ms * 1e3:.2f} us, gather+sdpa {library_ms * 1e3:.2f} us (err vs plain "
+          f"{lib_err:.2e}), bound {bound_s * 1e6:.3f} us by {bound_by} ({moved} B at "
+          f"{bw / 1e12:.2f} TB/s); kernel / bound {kernel_ms / (bound_s * 1e3):.2f}x, kernel / "
+          f"gather+sdpa {kernel_ms / library_ms:.2f}x on {card}", flush=True)
     del kpools, vpools
     free_memory(torch)
-    return {"cases": len(cases), "max_err_fp32": errs[torch.float32],
-            "max_err_bf16": errs[torch.bfloat16], "ms": kernel_ms, "plain_ms": plain_ms,
+    return {"ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
-            "eager_ms": kernel_eager_ms}
+            "bytes": moved, "lengths": lens_np.tolist(), "table": maxp, "plan": plan,
+            "max_abs_err": err}
 
 
 def flash_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
@@ -496,12 +578,17 @@ def phase_exact(torch, seed: int, kernels: dict) -> dict:
 def zero_launches(kernels: dict) -> None:
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "combine_launches"):
+            fn.combine_launches = fn.splits = 0
         if hasattr(fn, "launches_by_design"):
             fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
 def read_launches(kernels: dict) -> dict:
-    return {name: fn.launches for name, fn in kernels.items()}
+    counts = {name: fn.launches for name, fn in kernels.items()}
+    fn = kernels["paged_attention"]
+    counts.update(paged_combine=fn.combine_launches, paged_splits=fn.splits)
+    return counts
 
 
 def read_designs(kernels: dict) -> dict:
@@ -667,6 +754,7 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str) -> dict
           "decode steps")
     check(launches["flash_attention"] == cfg.n_layers * len(rids),
           f"serve: {launches['flash_attention']} flash launches for {len(rids)} prefills")
+    check(launches["paged_combine"] > 0, "serve: the paged combine kernel was not launched")
     res["profile"] = profile_steps(torch, eng, cfg, rng, res["median_step_ms"], card)
     eng.close()
     del eng, timed
@@ -755,6 +843,56 @@ class RowProbe:
         self.ms.append((time.perf_counter() - t0) * 1e3)
 
 
+class StepProbe:
+    """Stands in for the engine's decode step while phase 6 runs: times each
+    call to a synchronize, with the host time spent inside the paged
+    wrapper (its calls timed on the host clock, no synchronize), and runs
+    the calls numbered in ``profile_at`` under torch.profiler instead (they
+    are not timed), keeping the paged kernel's device time of each."""
+
+    def __init__(self, torch, step_fn, profile_at):
+        self.torch, self.step_fn, self.profile_at = torch, step_fn, set(profile_at)
+        self.ms, self.wrapper_ms, self.paged_ms, self.busy_ms = [], [], [], []
+        self.calls = 0
+
+    def _timed(self, args):
+        from repro_torch.kernels import ops
+        kernel_fn, spent = ops.paged_attention, []
+
+        def timed_call(*a, **kw):
+            t0 = time.perf_counter()
+            out = kernel_fn(*a, **kw)
+            spent.append(time.perf_counter() - t0)
+            return out
+
+        t0 = time.perf_counter()
+        try:
+            ops.paged_attention = timed_call
+            out = self.step_fn(*args)
+            self.torch.cuda.synchronize()
+        finally:
+            ops.paged_attention = kernel_fn
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        self.wrapper_ms.append(sum(spent) * 1e3)
+        return out
+
+    def __call__(self, *args):
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+        n, self.calls = self.calls, self.calls + 1
+        torch.cuda.synchronize()
+        if n not in self.profile_at:
+            return self._timed(args)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = self.step_fn(*args)
+            torch.cuda.synchronize()
+        dev = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3
+               for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+        self.paged_ms.append(sum(ms for k, ms in dev.items() if "paged_attention" in k))
+        self.busy_ms.append(sum(dev.values()))
+        return out
+
+
 def prefill_split(torch, prof) -> dict | None:
     """Device time of a profiled prefill row by kind: kernels that start
     before the end of the ``prefill.forward`` range are the forward pass
@@ -810,6 +948,8 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     probe = PrefillProbe(torch, T.prefill)
     rows = RowProbe(torch, eng._prefill_row, probe, profile_at=2)
     eng._prefill_row = rows
+    steps = StepProbe(torch, eng.step_fn, profile_at=(9, 10, 11))   # the second request's
+    eng.step_fn = steps
     rids = [eng.submit(p, max_new=PREFILL_NEW) for p in prompts]
     zero_launches(kernels)
     t0 = time.perf_counter()
@@ -836,7 +976,26 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
            "first_prefill": {k: v for k, v in first.items() if k != "logits"},
            "logits_rel_l2": rel_l2, "logits_max_abs_err": (got - plain).abs().max().item(),
            "argmax_equal": bool(got.argmax() == plain.argmax()), "stats": eng.stats(),
-           "profile": split}
+           "profile": split, "decode_steps": steps.calls,
+           "decode_step_median_ms": statistics.median(steps.ms),
+           "decode_step_ms": steps.ms,
+           "decode_paged_wrapper_host_ms_per_step": statistics.median(steps.wrapper_ms),
+           "decode_paged_device_ms_per_step": (statistics.mean(steps.paged_ms)
+                                               if any(steps.paged_ms) else None),
+           "decode_device_busy_ms_per_step": (statistics.mean(steps.busy_ms)
+                                              if any(steps.busy_ms) else None)}
+    paged_dev = res["decode_paged_device_ms_per_step"]
+    print(f"[prefill] decode steps over 4,097-4,104-key contexts (1 active row of 2): "
+          f"{steps.calls} steps, median {res['decode_step_median_ms']:.2f} ms over the "
+          f"{len(steps.ms)} unprofiled (before the profiled ones "
+          f"{statistics.median(steps.ms[:min(steps.profile_at)]):.2f} ms, after "
+          f"{statistics.median(steps.ms[min(steps.profile_at):]):.2f} ms), of which inside the "
+          f"paged wrapper (host clock) {res['decode_paged_wrapper_host_ms_per_step']:.2f} ms; "
+          f"{len(steps.paged_ms)} steps under torch.profiler: paged "
+          f"kernel device time per step "
+          f"{'%.4f ms' % paged_dev if paged_dev else 'not measured'} (36 layers), device busy "
+          f"{'%.2f ms' % res['decode_device_busy_ms_per_step'] if paged_dev else 'not measured'}"
+          f" on {card}", flush=True)
     print(f"[prefill] first prefill: {first['calls']} flash launches {first['launches_by_design']} "
           f"vs plain version on the same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol "
           f"{BF16_TOL:g}) {'ok' if first['calls_ok'] else 'FAIL'}; last-position logits with the "
@@ -876,8 +1035,12 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
           f"prefill: {launches['flash_attention']} flash launches for {len(rids)} prefills")
     check(designs["flash_attention"]["wgmma"] == cfg.n_layers * len(rids),
           f"prefill: flash launches by design {designs['flash_attention']}")
-    check(launches["paged_attention"] > 0, "prefill: no paged launch in the decode steps")
-    del eng, probe, rows, plain
+    check(launches["paged_attention"] == cfg.n_layers * steps.calls,
+          f"prefill: {launches['paged_attention']} paged launches for {steps.calls} decode steps")
+    check(len(steps.paged_ms) == 3, f"prefill: {len(steps.paged_ms)} decode steps profiled, not 3")
+    check(launches["paged_combine"] == launches["paged_attention"],
+          "prefill: the decode steps over 4,097+ keys did not all merge splits")
+    del eng, probe, rows, steps, plain
     free_memory(torch)
     return res
 
@@ -1023,19 +1186,27 @@ def main() -> int:
         return 1
 
     common = {"route": "cuda", "library_ms": None}
+    serve_t = paged["timed"]["serve"]
     line = {"kernels": [
         {**common, "name": "paged_attention",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:74",
          "launches": serve["launches"]["paged_attention"],
+         "combine_launches": serve["launches"]["paged_combine"],
+         "splits_launched": serve["launches"]["paged_splits"],
          "max_abs_err": max(paged["max_err_fp32"], paged["max_err_bf16"]),
-         "ms": paged["ms"], "plain_ms": paged["plain_ms"], "bound_ms": paged["bound_ms"],
-         "bound_by": paged["bound_by"], "library_ms": paged["library_ms"],
+         **{k: serve_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "eager_ms", "plan")},
          "library": "page gather + scaled_dot_product_attention(enable_gqa=True)",
+         "long_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                  "library_ms", "plan", "lengths", "table")}
+                         for name, t in paged["timed"].items() if name != "serve"},
          "cases": paged["cases"], "max_err_fp32": paged["max_err_fp32"],
-         "max_err_bf16": paged["max_err_bf16"], "eager_ms": paged["eager_ms"],
+         "max_err_bf16": paged["max_err_bf16"],
          "exact_phase_launches": exact["paged_attention"],
-         "prefill_phase_launches": prefill["launches"]["paged_attention"]},
+         "prefill_phase_launches": prefill["launches"]["paged_attention"],
+         "prefill_decode_step_median_ms": prefill["decode_step_median_ms"],
+         "prefill_decode_paged_device_ms_per_step": prefill["decode_paged_device_ms_per_step"]},
         {**common, "name": "flash_attention",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",

@@ -1,17 +1,28 @@
 """Paged decode attention on the card: the wrapper of ``csrc/paged_attention.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/paged_attention.py``. The
-kernel's design and what bounds it are described at the top of the ``.cu``
-file; its plain version is ``ref.paged_attention_ref``, which ``ops``
-dispatches to for CPU tensors. This wrapper takes CUDA tensors only: it
-launches the kernel or raises.
+kernel's design (split-K over pages, a ``cp.async`` ring, one combine) and
+what bounds it are described at the top of the ``.cu`` file; its plain
+version is ``ref.paged_attention_ref``, which ``ops`` dispatches to for CPU
+tensors. This wrapper takes CUDA tensors only: it launches the kernel or
+raises.
 
-``paged_attention.launches`` counts the launches of this process, so a run
-can show that its main path went through the kernel.
+``_plan_splits`` cuts the page table into splits from the shapes alone:
+``lengths`` is never read on the host, so a call can be captured in a CUDA
+graph and replayed with new lengths.
+
+Counters of this process, so a run can show that its main path went through
+the kernel: ``paged_attention.launches`` (calls of this wrapper, one split
+kernel each), ``paged_attention.combine_launches`` (the merge kernel, which
+runs when a plan has more than one split) and ``paged_attention.splits``
+(splits launched, summed over calls); ``paged_attention.last_plan`` is the
+plan of the latest call.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import torch
 
@@ -19,6 +30,10 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 120, 128)
+TILE_KEYS = 32           # keys per tile of the kernel (kTile)
+MAX_GROUP = 8            # q heads per block (kMaxGroup)
+MAX_SPLIT_PAGES = 256    # table entries a block keeps in shared memory (kMaxSplitPages)
+BLOCKS_PER_SM = 2        # the plan's target of blocks per SM when the table is long
 _fn = None
 
 
@@ -26,12 +41,39 @@ def _kernel():
     global _fn
     if _fn is None:
         _fn = _build.bind("paged_attention", "repro_paged_attention",
-                          [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                          [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                           + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     return _fn
 
 
+@functools.lru_cache(maxsize=256)
+def _plan_splits(batch: int, kv_heads: int, group: int, max_pages: int, page: int,
+                 sm_count: int) -> tuple[int, int]:
+    """(pages per split, number of splits) for a table of ``max_pages`` pages.
+
+    Whole pages per split, a whole number of the kernel's tiles where a page
+    is shorter than a tile, at most ``MAX_SPLIT_PAGES``; as many splits as
+    bring the blocks (splits x rows x KV heads x group chunks) to about
+    ``BLOCKS_PER_SM`` per SM. The splits cover the table once, in order; the
+    last may be shorter. Shapes only: no tensor is read."""
+    base = batch * kv_heads * -(-group // MAX_GROUP)
+    tile_pages = max(1, TILE_KEYS // page)
+    want = max(1, -(-BLOCKS_PER_SM * sm_count // max(base, 1)))
+    cap = MAX_SPLIT_PAGES // tile_pages * tile_pages
+    per = max(tile_pages, max_pages // want // tile_pages * tile_pages)
+    per = max(1, min(per, cap, max_pages))
+    return per, max(1, -(-max_pages // per))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check(q, k_pages, v_pages, page_table, lengths):
+    # cp.async copies 16-byte chunks of K/V rows: with the pools 16-byte
+    # aligned and (P, page, KV, hd) contiguous, every row is, since
+    # kvh * hd * elem is a multiple of 16 for each supported hd and dtype
     _build.check_tensors("paged_attention", 16, q=q, k_pages=k_pages, v_pages=v_pages,
                          page_table=page_table, lengths=lengths)
     if q.dtype not in _DTYPES:
@@ -64,15 +106,33 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
     fn = _kernel()
     b, h, hd = q.shape
     _, page, kvh, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    per, n_splits = _plan_splits(b, kvh, h // kvh, max_pages, page, _sm_count(q.device.index))
     out = torch.empty_like(q)
+    ml_ptr = acc_ptr = None
+    if n_splits > 1:   # f32 partials of each (row, split, q head): (m, l), then acc
+        n_ml = b * n_splits * h * 2
+        part = torch.empty(n_ml + n_ml // 2 * hd, dtype=torch.float32, device=q.device)
+        ml_ptr = part.data_ptr()
+        acc_ptr = ml_ptr + 4 * n_ml
+    q_scale = hd ** -0.5 * (1.0 if softcap else math.log2(math.e))
     # a stream of another device than the current one makes the launch fail
     err = fn(_DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             b, h, kvh, hd, page, page_table.shape[1], float(softcap), hd ** -0.5,
+             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), ml_ptr, acc_ptr,
+             b, h, kvh, hd, page, max_pages, per, n_splits, float(softcap), q_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on_error("paged_attention", err)
     paged_attention.launches += 1
+    paged_attention.splits += n_splits
+    if n_splits > 1:
+        paged_attention.combine_launches += 1
+    paged_attention.last_plan = {
+        "pages_per_split": per, "splits": n_splits,
+        "blocks": n_splits * b * kvh * -(-(h // kvh) // MAX_GROUP)}
     return out
 
 
 paged_attention.launches = 0
+paged_attention.combine_launches = 0
+paged_attention.splits = 0
+paged_attention.last_plan = None

@@ -80,6 +80,79 @@ def test_kernel_length_zero_gives_zero(card, dtype):
                                atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
+SPLIT_CASES = [
+    # b, h, kv, hd, page, max_pages, pool: 3 or more splits on an H100's 132 SMs
+    (6, 4, 2, 16, 8, 12, 64),         # hd 16, pages shorter than a tile
+    (6, 32, 8, 128, 16, 24, 160),     # qwen3-8b heads
+    (6, 32, 8, 120, 16, 24, 160),     # h2o-danube heads (hd 120)
+    (6, 32, 4, 64, 16, 24, 160),      # tinyllama heads (group 8)
+    (6, 16, 1, 64, 16, 16, 40),       # group 16: two chunks of q heads per KV head
+    (6, 4, 4, 32, 64, 6, 20),         # pages longer than a tile
+]
+
+
+def _split_edge_lengths(case):
+    """0, 1, a split's last key, one past it, the table's end, and a row
+    whose later splits lie wholly past its length, under this card's plan."""
+    b, h, kv, _, page, maxp, _ = case
+    per, n = cuda_paged._plan_splits(b, kv, h // kv, maxp, page, cuda_paged._sm_count(0))
+    sk = per * page
+    return [0, 1, sk, sk + 1, maxp * page, 2 * sk - 1][:b], n
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+@pytest.mark.parametrize("dtype", list(TOLS))
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_split_kernel_edges_match_plain_version(card, case, dtype, softcap):
+    lengths, n_splits = _split_edge_lengths(case)
+    args = _inputs(case, getattr(torch, dtype), seed=SPLIT_CASES.index(case), lengths=lengths)
+    fn = cuda_paged.paged_attention
+    before = (fn.launches, fn.combine_launches, fn.splits)
+    out = ops.paged_attention(*args, softcap=softcap)
+    again = ops.paged_attention(*args, softcap=softcap)
+    torch.cuda.synchronize()
+    assert n_splits > 1 and fn.last_plan["splits"] == n_splits
+    assert (fn.launches, fn.combine_launches, fn.splits) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * n_splits)
+    assert torch.equal(out, again), "two runs on the same inputs differ"
+    assert torch.all(out[0] == 0)
+    want = ref.paged_attention_ref(*args, softcap=softcap)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+
+
+def test_paged_kernel_in_a_cuda_graph_takes_new_lengths(card):
+    """The wrapper never reads lengths on the host: a captured call replayed
+    with new lengths gives the plain version's result for them."""
+    q, k, v, table, lengths = _inputs((4, 32, 8, 128, 16, 64, 300), torch.bfloat16, seed=21,
+                                      lengths=[5, 70, 300, 1000])
+    ops.paged_attention(q, k, v, table, lengths)          # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(q, k, v, table, lengths)
+    for new in ([0, 1, 1023, 17], [1024, 512, 33, 64], [96, 97, 95, 1]):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ref.paged_attention_ref(q, k, v, table, lengths)
+        torch.testing.assert_close(out.float(), want.float(), atol=TOLS["bfloat16"],
+                                   rtol=TOLS["bfloat16"])
+
+
+def test_paged_kernel_at_decode_4k(card):
+    """qwen3-8b's decode over 4,096-4,104-key contexts (B 4, table 264), each
+    row's pages distinct in the pool, bf16 at 3e-2."""
+    rng = np.random.default_rng(22)
+    b, h, kv, hd, page, maxp = 4, 32, 8, 128, 16, 264
+    table = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)).cuda()
+    q, k, v, _, lengths = _inputs((b, h, kv, hd, page, maxp, b * maxp), torch.bfloat16,
+                                  seed=22, lengths=rng.integers(4096, 4105, size=b))
+    out = ops.paged_attention(q, k, v, table, lengths)
+    assert cuda_paged.paged_attention.last_plan["blocks"] >= 2 * cuda_paged._sm_count(0)
+    torch.testing.assert_close(out.float(), ref.paged_attention_ref(q, k, v, table, lengths)
+                               .float(), atol=TOLS["bfloat16"], rtol=TOLS["bfloat16"])
+
+
 FLASH_CASES = [
     # b, sq, skv, h, kv, hd, causal, window, softcap, q_offset
     (2, 128, 128, 4, 2, 64, True, 0, 0.0, 0),      # tests/test_kernels.py FLASH_CASES
