@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-  python3 chip_smoke.py [--seed N]
+  python3 chip_smoke.py [--seed N] [--decode-probe SRC]
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
@@ -14,7 +14,9 @@ last line:
               paged attention on the kernel tests' shapes, hd 120, the
               serving shape and the split-K plan's edges (lengths 0, 1, a
               split's last key, one past it, the table's end; fp32 2e-5,
-              bf16 3e-2, a length-0 row gives 0, two runs bitwise equal),
+              bf16 3e-2 elementwise, and relative L2 over the output fp32
+              2e-5, bf16 1e-2; a length-0 row gives 0, two runs bitwise
+              equal),
               then timed at the serving shape, decode-4k (B 4, 4,098-4,104
               keys) and decode-32k (B 1, 32,768 keys) beside a page gather +
               SDPA and the bound, with the plan's splits and blocks;
@@ -33,17 +35,20 @@ last line:
   5. serve    qwen3-8b at full width and depth in bf16 (random weights from
               --seed): 12 requests must all finish, with one flash launch per
               layer per request; the first decode step's logits with the
-              kernel must match those with the plain version; tokens/s and
-              the median decode-step time;
+              kernel must match those with the plain version, each paged
+              launch of that step too; tokens/s and the median decode-step
+              time;
   6. prefill  the same model and weights: 3 requests of 4,096-token prompts
               through the engine (page 16, 32 x 12 sets); each flash launch
               of the first prefill held to the plain version and launched
               as wgmma, its logits to those of a plain-attention prefill;
               time to first token of the second; the third under
               torch.profiler: device time of flash, GEMMs, other elementwise
-              work and page writes, and the device's busy share; the median
-              decode step over the 4,097-4,104-key contexts, and the paged
-              kernel's device time per step (torch.profiler, 3 steps);
+              work and page writes, and the device's busy share; each paged
+              launch of the first decode step (4,097 keys) held to the
+              plain version, the median decode step over the 4,097-4,104-key
+              contexts, and the paged kernel's device time per step
+              (torch.profiler, 3 steps);
   7. sa-cache the SA-cache twin: the quickstart twin on the card, and
               ``select_flush_candidates`` at 131,072 x 12 on the card equal
               to the CPU's;
@@ -51,6 +56,12 @@ last line:
 
 The kernel launch counts are set to 0 just before each of phases 4-7 and
 read just after, to show each path ran through its kernels.
+
+With ``--decode-probe SRC`` it runs none of the phases: it takes the port
+package under SRC (``src`` of this checkout or of an earlier commit) and
+prints one JSON line with the paged wrapper's host time per call and phase
+6's decode over 4,097+-key contexts (``decode_probe``), so the designs of
+two commits can be compared in one run, say parent, change, change, parent.
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -75,6 +86,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 F32_TOL, BF16_TOL = 2e-5, 3e-2
+# paged attention is also held to a relative L2 error over the whole output:
+# with N(0,1) inputs its softmax is nearly flat, so outputs shrink as
+# 1/sqrt(keys) (about 0.026 at 4,100 keys) and the absolute tolerance alone
+# would pass a merge that dropped a split
+PAGED_REL_L2_F32, PAGED_REL_L2_BF16 = 2e-5, 1e-2
 FLASH_BF16_TOL = 2e-2               # tests/test_kernels.py:49
 BF16_PEAK_FLOPS = 989e12            # H100 SXM dense bf16 (data sheet)
 PAGED_CASES = [
@@ -209,9 +225,21 @@ def graph_ms(torch, fn, calls: int, reps: int = 20) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
+def paged_close(torch, out, want, tol: float, rel_tol: float) -> tuple[bool, float, float]:
+    """(ok, max abs error, relative L2 error) of a paged-attention output:
+    within ``tol`` elementwise (atol = rtol) and within ``rel_tol`` in
+    relative L2 over the whole output."""
+    out, want = out.float(), want.float()
+    diff = out - want
+    err = diff.abs().max().item()
+    rel = (diff.norm() / want.norm().clamp_min(1e-30)).item()
+    return bool(torch.allclose(out, want, atol=tol, rtol=tol)) and rel <= rel_tol, err, rel
+
+
 def split_edge_lengths(case) -> list[int]:
     """0, 1, a split's last key, one past it, the table's end, and a row whose
-    later splits lie wholly past its length, under this card's plan."""
+    later splits lie wholly past its length, under this card's plan (also
+    the card tests' cases, ``tests/test_torch_cuda.py``)."""
     from repro_torch.kernels import paged_attention as paged_mod
 
     b, h, kv, _, page, maxp, _ = case
@@ -240,6 +268,7 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
                 cases.append((f"split-edges{case} softcap {cap:g}", case, dtype,
                               split_edge_lengths(case), cap))
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rels = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for name, case, dtype, lengths, cap in cases:
         q, k, v, table, lens = paged_inputs(torch, case, dtype, rng, lengths)
         out = ops.paged_attention(q, k, v, table, lens, softcap=cap)
@@ -247,15 +276,16 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
         same = bool(torch.equal(out, ops.paged_attention(q, k, v, table, lens, softcap=cap)))
         torch.cuda.synchronize()
         want = ref.paged_attention_ref(q, k, v, table, lens, softcap=cap)
-        err = (out.float() - want.float()).abs().max().item()
-        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-        ok = bool(torch.allclose(out.float(), want.float(), atol=tol, rtol=tol))
+        tol, rel_tol = ((F32_TOL, PAGED_REL_L2_F32) if dtype == torch.float32
+                        else (BF16_TOL, PAGED_REL_L2_BF16))
+        ok, err, rel = paged_close(torch, out, want, tol, rel_tol)
         zero_rows = (lens == 0).nonzero().flatten()
         if len(zero_rows):
             ok = ok and bool((out[zero_rows] == 0).all())
         errs[dtype] = max(errs[dtype], err)
+        rels[dtype] = max(rels[dtype], rel)
         print(f"[kernels] paged_attention {name} {str(dtype)[6:]}: max_abs_err {err:.3e} "
-              f"(tol {tol:g}), {plan['splits']} splits of {plan['pages_per_split']} pages, "
+              f"(tol {tol:g}), rel L2 {rel:.2e} (tol {rel_tol:g}), {plan['splits']} splits of {plan['pages_per_split']} pages, "
               f"rerun bitwise {'equal' if same else 'DIFFERENT'} {'ok' if ok else 'FAIL'}",
               flush=True)
         check(ok, f"paged_attention {name} {dtype}: kernel disagrees with plain version")
@@ -264,7 +294,42 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
     timed = {name: time_paged(torch, card, rng, name, *shape)
              for name, shape in PAGED_TIMED.items()}
     return {"cases": len(cases), "max_err_fp32": errs[torch.float32],
-            "max_err_bf16": errs[torch.bfloat16], "timed": timed}
+            "max_err_bf16": errs[torch.bfloat16], "max_rel_l2_fp32": rels[torch.float32],
+            "max_rel_l2_bf16": rels[torch.bfloat16], "timed": timed}
+
+
+def timed_paged_inputs(torch, rng, maxp: int, pool: int, lengths: list[int], copies: int):
+    """q, ``copies`` K and V pools, table and lengths at qwen3-8b's decode
+    heads (H 32, KV 8, hd 128, page 16, bf16). A table of ``b * maxp <=
+    pool`` entries is a permutation of the pool, so every key is a distinct
+    row of memory."""
+    h, kv, hd, page = PAGED_HEADS
+    b = len(lengths)
+    ids = (rng.permutation(pool)[:b * maxp] if b * maxp <= pool
+           else rng.integers(0, pool, size=b * maxp))
+    table = torch.from_numpy(ids.reshape(b, maxp).astype(np.int32)).to("cuda")
+    lens = torch.from_numpy(np.asarray(lengths, np.int32)).to("cuda")
+    q = torch.randn((b, h, hd), device="cuda").to(torch.bfloat16)
+    kpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
+    vpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
+    return q, kpools, vpools, table, lens
+
+
+def wrapper_host_us(torch, fn) -> float:
+    """Median host time of one call of ``fn`` (the wrapper's Python, the
+    allocations and the launches; no synchronize inside the timed call, one
+    after every 8 calls so the launch queue never fills)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    spent = []
+    for _ in range(60):
+        for _ in range(8):
+            t0 = time.perf_counter()
+            fn()
+            spent.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(spent) * 1e6
 
 
 def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: list[int],
@@ -273,9 +338,9 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
     hd 128, page 16, bf16) beside its plain version, a page gather + SDPA and
     the bound by bytes. ``copies`` pools are rotated so that the K/V the
     timed calls read exceeds the 50 MB L2 (at the serving shape, a pool per
-    layer). A table of ``b * maxp <= pool`` entries is a permutation of the
-    pool, so every key is a distinct row of memory. The kernel is first held
-    to the plain version, twice, bitwise equal."""
+    layer). The kernel is first held to the plain version (3e-2 elementwise
+    and 1e-2 relative L2), twice, bitwise equal. Also the wrapper's host
+    time per call."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import paged_attention as paged_mod
@@ -283,23 +348,17 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
     h, kv, hd, page = PAGED_HEADS
     lens_np = np.asarray(lengths)
     b = len(lengths)
-    ids = (rng.permutation(pool)[:b * maxp] if b * maxp <= pool
-           else rng.integers(0, pool, size=b * maxp))
-    table = torch.from_numpy(ids.reshape(b, maxp).astype(np.int32)).to("cuda")
-    lens = torch.from_numpy(lens_np.astype(np.int32)).to("cuda")
-    q = torch.randn((b, h, hd), device="cuda").to(torch.bfloat16)
-    kpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
-    vpools = torch.randn((copies, pool, page, kv, hd), device="cuda").to(torch.bfloat16)
+    q, kpools, vpools, table, lens = timed_paged_inputs(torch, rng, maxp, pool, lengths, copies)
 
     out = ops.paged_attention(q, kpools[0], vpools[0], table, lens)
     plan = dict(paged_mod.paged_attention.last_plan)
     again = ops.paged_attention(q, kpools[0], vpools[0], table, lens)
     want = ref.paged_attention_ref(q, kpools[0], vpools[0], table, lens)
-    err = (out.float() - want.float()).abs().max().item()
-    ok = bool(torch.allclose(out.float(), want.float(), atol=BF16_TOL, rtol=BF16_TOL))
+    ok, err, rel = paged_close(torch, out, want, BF16_TOL, PAGED_REL_L2_BF16)
     same = bool(torch.equal(out, again))
-    print(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {BF16_TOL:g}), rerun "
-          f"bitwise {'equal' if same else 'DIFFERENT'}, plan {plan} "
+    print(f"[kernels] paged_attention {name}: max_abs_err {err:.3e} (tol {BF16_TOL:g}; "
+          f"max |plain| {want.float().abs().max().item():.3e}), rel L2 {rel:.2e} (tol "
+          f"{PAGED_REL_L2_BF16:g}), rerun bitwise {'equal' if same else 'DIFFERENT'}, plan {plan} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     check(ok, f"paged_attention {name}: kernel disagrees with plain version")
     check(same, f"paged_attention {name}: two runs differ")
@@ -315,6 +374,7 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
 
     kernel_ms = graph_ms(torch, kernel, calls)
     eager_ms = time_ms(torch, kernel, 10 * calls)
+    host_us = wrapper_host_us(torch, lambda: kernel(0))
     plain_ms = graph_ms(torch, lambda i: ref.paged_attention_ref(
         q, kpools[i % copies], vpools[i % copies], table, lens), min(calls, 4), reps=5)
     # library yardstick: gather the pages the longest row needs, then SDPA
@@ -343,17 +403,19 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
     bound_by = "bytes" if moved / bw >= flops / BF16_PEAK_FLOPS else "operations"
     print(f"[kernels] paged_attention {name} at B{b} H{h} KV{kv} hd{hd} page{page} bf16, table "
           f"{maxp}, lengths {lens_np.tolist()}: device time (CUDA graph replay) kernel "
-          f"{kernel_ms * 1e3:.2f} us (eager, host launch included: {eager_ms * 1e3:.2f} us), "
+          f"{kernel_ms * 1e3:.2f} us (eager, host launch included: {eager_ms * 1e3:.2f} us; "
+          f"host time in the wrapper {host_us:.2f} us), "
           f"plain {plain_ms * 1e3:.2f} us, gather+sdpa {library_ms * 1e3:.2f} us (err vs plain "
           f"{lib_err:.2e}), bound {bound_s * 1e6:.3f} us by {bound_by} ({moved} B at "
           f"{bw / 1e12:.2f} TB/s); kernel / bound {kernel_ms / (bound_s * 1e3):.2f}x, kernel / "
           f"gather+sdpa {kernel_ms / library_ms:.2f}x on {card}", flush=True)
     del kpools, vpools
     free_memory(torch)
-    return {"ms": kernel_ms, "eager_ms": eager_ms, "plain_ms": plain_ms,
+    return {"ms": kernel_ms, "eager_ms": eager_ms, "wrapper_host_us": host_us,
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": moved, "lengths": lens_np.tolist(), "table": maxp, "plan": plan,
-            "max_abs_err": err}
+            "max_abs_err": err, "rel_l2": rel}
 
 
 def flash_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
@@ -600,6 +662,28 @@ def read_designs(kernels: dict) -> dict:
 # phase 5: serve at full width and depth
 # ---------------------------------------------------------------------------
 
+def checked_paged(torch, kernel_fn, calls: list):
+    """``kernel_fn`` with each call held to the plain version on the same
+    inputs (3e-2 elementwise, 1e-2 relative L2): appends (max abs error,
+    relative L2, ok) to ``calls``."""
+    from repro_torch.kernels import ref
+
+    def checked(*a, **kw):
+        out = kernel_fn(*a, **kw)
+        ok, err, rel = paged_close(torch, out, ref.paged_attention_ref(*a, **kw), BF16_TOL,
+                                   PAGED_REL_L2_BF16)
+        calls.append((err, rel, ok))
+        return out
+
+    return checked
+
+
+def checked_summary(calls: list) -> dict:
+    return {"calls": len(calls), "calls_ok": all(ok for _, _, ok in calls),
+            "call_max_abs_err": max(e for e, _, _ in calls),
+            "call_max_rel_l2": max(r for _, r, _ in calls)}
+
+
 class TimedStep:
     """Wraps the engine's decode step and times each call (to a synchronize).
 
@@ -616,24 +700,15 @@ class TimedStep:
         from repro_torch.kernels import ops, ref
         kernel_fn = ops.paged_attention
         calls = []
-
-        def checked(*a, **kw):
-            out = kernel_fn(*a, **kw)
-            want = ref.paged_attention_ref(*a, **kw).float()
-            calls.append(((out.float() - want).abs().max().item(),
-                          bool(torch.allclose(out.float(), want, atol=BF16_TOL, rtol=BF16_TOL))))
-            return out
-
         try:
             ops.paged_attention = ref.paged_attention_ref
             plain = self.step_fn(*args)
-            ops.paged_attention = checked
+            ops.paged_attention = checked_paged(torch, kernel_fn, calls)
             got = self.step_fn(*args)
         finally:
             ops.paged_attention = kernel_fn
         self.first = {
-            "calls": len(calls), "calls_ok": all(ok for _, ok in calls),
-            "call_max_abs_err": max(e for e, _ in calls),
+            **checked_summary(calls),
             "logits_max_abs_err": (got - plain).abs().max().item(),
             "logits_rel_l2": ((got - plain).norm() / plain.norm()).item(),
             "argmax_equal_rows": int((got.argmax(-1) == plain.argmax(-1)).sum()),
@@ -734,7 +809,8 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str) -> dict
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches, "stats": eng.stats(), "card": card}
     print(f"[serve] first decode step: {first['calls']} kernel launches vs plain version on the "
-          f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}) "
+          f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
+          f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
           f"{'ok' if first['calls_ok'] else 'FAIL'}; logits with kernel vs with plain attention: "
           f"max_abs_err {first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} "
           f"(tol {BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows",
@@ -848,12 +924,25 @@ class StepProbe:
     call to a synchronize, with the host time spent inside the paged
     wrapper (its calls timed on the host clock, no synchronize), and runs
     the calls numbered in ``profile_at`` under torch.profiler instead (they
-    are not timed), keeping the paged kernel's device time of each."""
+    are not timed), keeping the paged kernel's device time of each. The
+    first call holds each paged launch to the plain version on the same
+    inputs (``checked_paged``) and is not timed either."""
 
     def __init__(self, torch, step_fn, profile_at):
         self.torch, self.step_fn, self.profile_at = torch, step_fn, set(profile_at)
         self.ms, self.wrapper_ms, self.paged_ms, self.busy_ms = [], [], [], []
-        self.calls = 0
+        self.calls, self.first = 0, None
+
+    def _checked(self, args):
+        from repro_torch.kernels import ops
+        kernel_fn, calls = ops.paged_attention, []
+        try:
+            ops.paged_attention = checked_paged(self.torch, kernel_fn, calls)
+            out = self.step_fn(*args)
+        finally:
+            ops.paged_attention = kernel_fn
+        self.first = checked_summary(calls)
+        return out
 
     def _timed(self, args):
         from repro_torch.kernels import ops
@@ -881,6 +970,8 @@ class StepProbe:
         from torch.profiler import ProfilerActivity, profile
         n, self.calls = self.calls, self.calls + 1
         torch.cuda.synchronize()
+        if n == 0:
+            return self._checked(args)
         if n not in self.profile_at:
             return self._timed(args)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -976,7 +1067,7 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
            "first_prefill": {k: v for k, v in first.items() if k != "logits"},
            "logits_rel_l2": rel_l2, "logits_max_abs_err": (got - plain).abs().max().item(),
            "argmax_equal": bool(got.argmax() == plain.argmax()), "stats": eng.stats(),
-           "profile": split, "decode_steps": steps.calls,
+           "profile": split, "decode_steps": steps.calls, "first_decode_step": steps.first,
            "decode_step_median_ms": statistics.median(steps.ms),
            "decode_step_ms": steps.ms,
            "decode_paged_wrapper_host_ms_per_step": statistics.median(steps.wrapper_ms),
@@ -985,11 +1076,15 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
            "decode_device_busy_ms_per_step": (statistics.mean(steps.busy_ms)
                                               if any(steps.busy_ms) else None)}
     paged_dev = res["decode_paged_device_ms_per_step"]
+    print(f"[prefill] first decode step over 4,097 keys: {steps.first['calls']} paged launches "
+          f"vs plain version on the same inputs max_abs_err {steps.first['call_max_abs_err']:.3e} "
+          f"(tol {BF16_TOL:g}), rel L2 {steps.first['call_max_rel_l2']:.2e} (tol "
+          f"{PAGED_REL_L2_BF16:g}) {'ok' if steps.first['calls_ok'] else 'FAIL'}", flush=True)
     print(f"[prefill] decode steps over 4,097-4,104-key contexts (1 active row of 2): "
           f"{steps.calls} steps, median {res['decode_step_median_ms']:.2f} ms over the "
-          f"{len(steps.ms)} unprofiled (before the profiled ones "
-          f"{statistics.median(steps.ms[:min(steps.profile_at)]):.2f} ms, after "
-          f"{statistics.median(steps.ms[min(steps.profile_at):]):.2f} ms), of which inside the "
+          f"{len(steps.ms)} timed (before the profiled ones "
+          f"{statistics.median(steps.ms[:min(steps.profile_at) - 1]):.2f} ms, after "
+          f"{statistics.median(steps.ms[min(steps.profile_at) - 1:]):.2f} ms), of which inside the "
           f"paged wrapper (host clock) {res['decode_paged_wrapper_host_ms_per_step']:.2f} ms; "
           f"{len(steps.paged_ms)} steps under torch.profiler: paged "
           f"kernel device time per step "
@@ -1038,10 +1133,59 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     check(launches["paged_attention"] == cfg.n_layers * steps.calls,
           f"prefill: {launches['paged_attention']} paged launches for {steps.calls} decode steps")
     check(len(steps.paged_ms) == 3, f"prefill: {len(steps.paged_ms)} decode steps profiled, not 3")
+    check(steps.first["calls_ok"] and steps.first["calls"] == cfg.n_layers,
+          "prefill: a paged launch of the first decode step over 4,097 keys differs from the "
+          "plain version")
     check(launches["paged_combine"] == launches["paged_attention"],
           "prefill: the decode steps over 4,097+ keys did not all merge splits")
     del eng, probe, rows, steps, plain
     free_memory(torch)
+    return res
+
+
+def decode_probe(torch, seed: int, card: str) -> dict:
+    """``--decode-probe SRC``: the paged kernel of the port package under
+    SRC (this checkout's, or an earlier commit's unpacked beside it), so two
+    designs can be compared in one run on one card. The wrapper's host time
+    per call at the serve and decode-4k shapes, then phase 6's decode over
+    4,097+-key contexts with 16 new tokens per request: each paged launch of
+    the first step held to the plain version, the median step, the host time
+    inside the wrapper per step, and the paged kernel's device time per step
+    (torch.profiler, 3 steps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as paged_mod
+    from repro_torch.serving import ServeEngine
+
+    rng = np.random.default_rng(seed + 7)
+    host_us = {}
+    for name in ("serve", "decode-4k"):
+        maxp, pool, lengths, _ = PAGED_TIMED[name]
+        q, kp, vp, table, lens = timed_paged_inputs(torch, rng, maxp, pool, lengths, 1)
+        host_us[name] = wrapper_host_us(
+            torch, lambda: ops.paged_attention(q, kp[0], vp[0], table, lens))
+        del q, kp, vp
+    free_memory(torch)
+    cfg, params = full_model(torch, seed)
+    page = 16
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=page, num_sets=32, set_size=12,
+                      max_pages=PREFILL_TOKENS // page + 8, device="cuda")
+    steps = StepProbe(torch, eng.step_fn, profile_at=(9, 10, 11))
+    eng.step_fn = steps
+    rids = [eng.submit([int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)], max_new=16)
+            for _ in range(3)]
+    eng.run(max_steps=300)
+    torch.cuda.synchronize()
+    eng.close()
+    res = {"paged_module": paged_mod.__file__, "card": card,
+           "done": sum(eng.result(r).state == "done" for r in rids),
+           "wrapper_host_us_per_call": host_us, "first_decode_step": steps.first,
+           "decode_steps": steps.calls, "decode_step_median_ms": statistics.median(steps.ms),
+           "decode_paged_wrapper_host_ms_per_step": statistics.median(steps.wrapper_ms),
+           "decode_paged_device_ms_per_step": statistics.mean(steps.paged_ms),
+           "decode_device_busy_ms_per_step": statistics.mean(steps.busy_ms),
+           "decode_step_ms": steps.ms}
+    check(res["done"] == len(rids), f"decode probe: only {res['done']} requests finished")
+    check(steps.first["calls_ok"], "decode probe: a paged launch differs from the plain version")
     return res
 
 
@@ -1144,7 +1288,12 @@ def build_all(torch, modules: dict) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-probe", metavar="SRC",
+                    help="only time the paged kernel's decode (decode_probe) with the port "
+                         "package found under SRC, print it as one JSON line and exit")
     args = ap.parse_args()
+    if args.decode_probe:
+        sys.path.insert(0, str(Path(args.decode_probe).resolve()))
 
     import torch
     if not torch.cuda.is_available():
@@ -1164,6 +1313,13 @@ def main() -> int:
     kernels = {"paged_attention": paged_mod.paged_attention,
                "flash_attention": flash_mod.flash_attention,
                "flush_scores": flush_mod.flush_scores}
+    if args.decode_probe:
+        try:
+            print(json.dumps(decode_probe(torch, args.seed, card)), flush=True)
+        except SmokeFailure as e:
+            print(f"chip_smoke FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
 
     try:
         # 2. build
@@ -1196,13 +1352,15 @@ def main() -> int:
          "splits_launched": serve["launches"]["paged_splits"],
          "max_abs_err": max(paged["max_err_fp32"], paged["max_err_bf16"]),
          **{k: serve_t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                    "eager_ms", "plan")},
+                                    "eager_ms", "wrapper_host_us", "plan")},
          "library": "page gather + scaled_dot_product_attention(enable_gqa=True)",
          "long_shapes": {name: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                  "library_ms", "plan", "lengths", "table")}
+                                                  "library_ms", "plan", "lengths", "table",
+                                                  "max_abs_err", "rel_l2", "wrapper_host_us")}
                          for name, t in paged["timed"].items() if name != "serve"},
          "cases": paged["cases"], "max_err_fp32": paged["max_err_fp32"],
-         "max_err_bf16": paged["max_err_bf16"],
+         "max_err_bf16": paged["max_err_bf16"], "max_rel_l2_fp32": paged["max_rel_l2_fp32"],
+         "max_rel_l2_bf16": paged["max_rel_l2_bf16"],
          "exact_phase_launches": exact["paged_attention"],
          "prefill_phase_launches": prefill["launches"]["paged_attention"],
          "prefill_decode_step_median_ms": prefill["decode_step_median_ms"],

@@ -32,10 +32,12 @@
 //   * grid (split, KV head x group chunk, row); a block keeps its split's
 //     online softmax (m, l, acc) in f32 and writes it as a partial, or, when
 //     its split is the only one that holds keys of the row, the output
-//     itself; a split that starts at or past lengths[b] writes m = -inf,
-//     l = 0 and returns at once;
+//     itself; a split that starts at or past lengths[b] returns at once,
+//     writing nothing;
 //   * a second kernel merges the partials of each (row, q head) in split
-//     order. No atomics, a fixed order: two runs are bitwise equal.
+//     order, reading only the splits that hold keys of the row (their count
+//     follows from lengths[b] and the plan). No atomics, a fixed order: two
+//     runs are bitwise equal.
 //
 // Bytes in flight. A block reads its split's table entries once, up front,
 // into shared memory, then streams tiles of kTile keys of K and V through
@@ -71,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -191,16 +195,6 @@ __device__ __forceinline__ Split split_of(const int* lengths, int H, int KV, int
   return s;
 }
 
-// A split past the row's end writes an empty partial; true if it was one.
-__device__ __forceinline__ bool empty_split(const Split& s, float* part_ml) {
-  if (s.split < s.n_live) return false;
-  if ((int)threadIdx.x < s.ng) {
-    part_ml[2 * (s.part0 + threadIdx.x)] = -INFINITY;
-    part_ml[2 * (s.part0 + threadIdx.x) + 1] = 0.f;
-  }
-  return true;
-}
-
 // The split's live table entries, once (the caller synchronizes).
 __device__ __forceinline__ void load_table(const Split& s, const int* page_table, int* s_tab,
                                            int page, int max_pages, int split_pages) {
@@ -292,7 +286,7 @@ paged_attention_split_mma_kernel(const __nv_bfloat16* __restrict__ q,
   int* s_tab = reinterpret_cast<int*>(s_l + kMaxGroup);
 
   const Split s = split_of(lengths, H, KV, page, max_pages, split_pages, n_splits);
-  if (empty_split(s, part_ml)) return;
+  if (s.split >= s.n_live) return;  // past the row's end: the combine reads no partial
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -491,7 +485,7 @@ paged_attention_split_simt_kernel(const float* __restrict__ q, const float* __re
   int* s_tab = reinterpret_cast<int*>(s_l + kMaxGroup);
 
   const Split s = split_of(lengths, H, KV, page, max_pages, split_pages, n_splits);
-  if (empty_split(s, part_ml)) return;
+  if (s.split >= s.n_live) return;  // past the row's end: the combine reads no partial
   const int ng = s.ng;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -678,10 +672,18 @@ int launch(SplitKernel<T> split_kernel, int smem, const void* q, const void* k, 
            const int* table, const int* lengths, void* out, float* part_ml, float* part_acc,
            int B, int H, int KV, int page, int max_pages, int split_pages, int n_splits,
            float softcap, float q_scale, cudaStream_t stream) {
-  // above 48 KB of dynamic shared memory a kernel must opt in (per device)
-  cudaError_t err =
-      cudaFuncSetAttribute(split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  // above 48 KB of dynamic shared memory a kernel must opt in: once per
+  // instantiation and device, not on every launch of a decode step
+  static std::atomic<uint64_t> configured{0};  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (!(configured.load(std::memory_order_relaxed) & bit)) {
+    err = cudaFuncSetAttribute(split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    configured.fetch_or(bit, std::memory_order_relaxed);
+  }
   const dim3 grid(n_splits, KV * ceil_div(H / KV, kMaxGroup), B);
   split_kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), table,

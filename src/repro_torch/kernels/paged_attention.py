@@ -23,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 
 import torch
 
@@ -30,9 +31,18 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 120, 128)
-TILE_KEYS = 32           # keys per tile of the kernel (kTile)
-MAX_GROUP = 8            # q heads per block (kMaxGroup)
-MAX_SPLIT_PAGES = 256    # table entries a block keeps in shared memory (kMaxSplitPages)
+
+
+def _kernel_constants(*names: str) -> tuple[int, ...]:
+    """The kernel's geometry, read from the ``constexpr int`` lines of its
+    source, so the plan and the kernel cannot drift apart (nothing builds)."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names)
+
+
+# keys per tile, q heads per block, table entries a block keeps in shared memory
+TILE_KEYS, MAX_GROUP, MAX_SPLIT_PAGES = _kernel_constants("kTile", "kMaxGroup",
+                                                          "kMaxSplitPages")
 BLOCKS_PER_SM = 2        # the plan's target of blocks per SM when the table is long
 _fn = None
 
@@ -56,13 +66,18 @@ def _plan_splits(batch: int, kv_heads: int, group: int, max_pages: int, page: in
     bring the blocks (splits x rows x KV heads x group chunks) to about
     ``BLOCKS_PER_SM`` per SM. The splits cover the table once, in order; the
     last may be shorter. Shapes only: no tensor is read."""
-    base = batch * kv_heads * -(-group // MAX_GROUP)
+    base = _blocks(batch, kv_heads, group, 1)
     tile_pages = max(1, TILE_KEYS // page)
     want = max(1, -(-BLOCKS_PER_SM * sm_count // max(base, 1)))
     cap = MAX_SPLIT_PAGES // tile_pages * tile_pages
     per = max(tile_pages, max_pages // want // tile_pages * tile_pages)
     per = max(1, min(per, cap, max_pages))
     return per, max(1, -(-max_pages // per))
+
+
+def _blocks(batch: int, kv_heads: int, group: int, n_splits: int) -> int:
+    """Blocks of the split kernel's grid (split, KV head x group chunk, row)."""
+    return n_splits * kv_heads * -(-group // MAX_GROUP) * batch
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,9 +141,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
     paged_attention.splits += n_splits
     if n_splits > 1:
         paged_attention.combine_launches += 1
-    paged_attention.last_plan = {
-        "pages_per_split": per, "splits": n_splits,
-        "blocks": n_splits * b * kvh * -(-(h // kvh) // MAX_GROUP)}
+    paged_attention.last_plan = {"pages_per_split": per, "splits": n_splits,
+                                 "blocks": _blocks(b, kvh, h // kvh, n_splits)}
     return out
 
 

@@ -6,6 +6,9 @@ SA-cache twin on the card == on the CPU. Skips without a card.
 
 Imports nothing of JAX, so it runs on a machine that has none.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +35,15 @@ PAGED_CASES = [
     (2, 32, 8, 120, 16, 8, 32),       # h2o-danube decode (hd 120)
 ]
 TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
+# and relative L2 over the whole output (chip_smoke.py's, which says why)
+REL_L2_TOLS = {"float32": 2e-5, "bfloat16": 1e-2}
+
+# chip_smoke.py keeps the split-K plan's edge cases; they are run here too
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+SPLIT_CASES = chip_smoke.SPLIT_CASES
 
 
 @pytest.fixture
@@ -41,6 +53,12 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_paged_close(out, want, dtype):
+    torch.testing.assert_close(out.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+    diff = (out.float() - want.float()).norm()
+    assert diff <= REL_L2_TOLS[dtype] * want.float().norm(), "relative L2 error too large"
 
 
 def _inputs(case, dtype, seed, lengths=None):
@@ -66,8 +84,7 @@ def test_kernel_matches_plain_version(card, case, dtype, softcap):
     out = ops.paged_attention(*args, softcap=softcap)
     torch.cuda.synchronize()
     assert cuda_paged.paged_attention.launches == before + 1
-    want = ref.paged_attention_ref(*args, softcap=softcap)
-    torch.testing.assert_close(out.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+    _assert_paged_close(out, ref.paged_attention_ref(*args, softcap=softcap), dtype)
 
 
 @pytest.mark.parametrize("dtype", list(TOLS))
@@ -76,35 +93,16 @@ def test_kernel_length_zero_gives_zero(card, dtype):
                    lengths=[0, 1, 8, 9, 32])
     out = ops.paged_attention(*args)
     assert torch.all(out[0] == 0)
-    torch.testing.assert_close(out.float(), ref.paged_attention_ref(*args).float(),
-                               atol=TOLS[dtype], rtol=TOLS[dtype])
-
-
-SPLIT_CASES = [
-    # b, h, kv, hd, page, max_pages, pool: 3 or more splits on an H100's 132 SMs
-    (6, 4, 2, 16, 8, 12, 64),         # hd 16, pages shorter than a tile
-    (6, 32, 8, 128, 16, 24, 160),     # qwen3-8b heads
-    (6, 32, 8, 120, 16, 24, 160),     # h2o-danube heads (hd 120)
-    (6, 32, 4, 64, 16, 24, 160),      # tinyllama heads (group 8)
-    (6, 16, 1, 64, 16, 16, 40),       # group 16: two chunks of q heads per KV head
-    (6, 4, 4, 32, 64, 6, 20),         # pages longer than a tile
-]
-
-
-def _split_edge_lengths(case):
-    """0, 1, a split's last key, one past it, the table's end, and a row
-    whose later splits lie wholly past its length, under this card's plan."""
-    b, h, kv, _, page, maxp, _ = case
-    per, n = cuda_paged._plan_splits(b, kv, h // kv, maxp, page, cuda_paged._sm_count(0))
-    sk = per * page
-    return [0, 1, sk, sk + 1, maxp * page, 2 * sk - 1][:b], n
+    _assert_paged_close(out, ref.paged_attention_ref(*args), dtype)
 
 
 @pytest.mark.parametrize("case", SPLIT_CASES)
 @pytest.mark.parametrize("dtype", list(TOLS))
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
 def test_split_kernel_edges_match_plain_version(card, case, dtype, softcap):
-    lengths, n_splits = _split_edge_lengths(case)
+    b, h, kv, _, page, maxp, _ = case
+    lengths = chip_smoke.split_edge_lengths(case)
+    _, n_splits = cuda_paged._plan_splits(b, kv, h // kv, maxp, page, cuda_paged._sm_count(0))
     args = _inputs(case, getattr(torch, dtype), seed=SPLIT_CASES.index(case), lengths=lengths)
     fn = cuda_paged.paged_attention
     before = (fn.launches, fn.combine_launches, fn.splits)
@@ -116,8 +114,7 @@ def test_split_kernel_edges_match_plain_version(card, case, dtype, softcap):
         before[0] + 2, before[1] + 2, before[2] + 2 * n_splits)
     assert torch.equal(out, again), "two runs on the same inputs differ"
     assert torch.all(out[0] == 0)
-    want = ref.paged_attention_ref(*args, softcap=softcap)
-    torch.testing.assert_close(out.float(), want.float(), atol=TOLS[dtype], rtol=TOLS[dtype])
+    _assert_paged_close(out, ref.paged_attention_ref(*args, softcap=softcap), dtype)
 
 
 def test_paged_kernel_in_a_cuda_graph_takes_new_lengths(card):
@@ -134,14 +131,13 @@ def test_paged_kernel_in_a_cuda_graph_takes_new_lengths(card):
         lengths.copy_(torch.tensor(new, dtype=torch.int32))
         graph.replay()
         torch.cuda.synchronize()
-        want = ref.paged_attention_ref(q, k, v, table, lengths)
-        torch.testing.assert_close(out.float(), want.float(), atol=TOLS["bfloat16"],
-                                   rtol=TOLS["bfloat16"])
+        _assert_paged_close(out, ref.paged_attention_ref(q, k, v, table, lengths), "bfloat16")
 
 
 def test_paged_kernel_at_decode_4k(card):
     """qwen3-8b's decode over 4,096-4,104-key contexts (B 4, table 264), each
-    row's pages distinct in the pool, bf16 at 3e-2."""
+    row's pages distinct in the pool, bf16 at 3e-2 and 1e-2 relative L2
+    (outputs are about 0.026 there, so the elementwise bound alone is loose)."""
     rng = np.random.default_rng(22)
     b, h, kv, hd, page, maxp = 4, 32, 8, 128, 16, 264
     table = torch.from_numpy(rng.permutation(b * maxp).reshape(b, maxp).astype(np.int32)).cuda()
@@ -149,8 +145,7 @@ def test_paged_kernel_at_decode_4k(card):
                                   seed=22, lengths=rng.integers(4096, 4105, size=b))
     out = ops.paged_attention(q, k, v, table, lengths)
     assert cuda_paged.paged_attention.last_plan["blocks"] >= 2 * cuda_paged._sm_count(0)
-    torch.testing.assert_close(out.float(), ref.paged_attention_ref(q, k, v, table, lengths)
-                               .float(), atol=TOLS["bfloat16"], rtol=TOLS["bfloat16"])
+    _assert_paged_close(out, ref.paged_attention_ref(q, k, v, table, lengths), "bfloat16")
 
 
 FLASH_CASES = [

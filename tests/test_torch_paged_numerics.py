@@ -14,7 +14,9 @@ in interpret mode on the same numpy inputs, in fp32 at 2e-5. With
 to both at the card tests' bf16 tolerance, 3e-2. The properties of
 ``_plan_splits`` are checked with hypothesis.
 """
+import importlib.util
 import math
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,11 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import ref
 from repro_torch.kernels.paged_attention import (BLOCKS_PER_SM, MAX_GROUP, MAX_SPLIT_PAGES,
                                                  TILE_KEYS, _plan_splits)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 TOL = 2e-5
 BF16_TOL = 3e-2           # the card tests' bf16 tolerance
@@ -240,3 +247,23 @@ def test_plan_splits_properties(batch, kv, group, max_pages, page, sms):
         assert n * base >= BLOCKS_PER_SM * sms
     # shapes only: the same shapes give the same plan
     assert _plan_splits(batch, kv, group, max_pages, page, sms) == (per, n)
+
+
+def test_long_context_check_catches_a_dropped_split():
+    """chip_smoke's check at decode-4k: with N(0,1) inputs the softmax is
+    nearly flat and outputs are about 1/sqrt(4,098), so a merge that drops
+    the last of a row's 10 splits (66 keys) stays inside the elementwise
+    tolerance; the relative L2 bound rejects it and passes bf16 rounding."""
+    per, _ = _plan_splits(4, 8, 4, 264, 16, H100_SMS)       # decode-4k's plan
+    split_keys, length = per * 16, 4098
+    n_live = -(-length // split_keys)
+    _, t = _inputs((1, 4, 1, 128, 16, 264, 264), seed=15, lengths=[length])
+    t["table"] = torch.arange(264, dtype=torch.int32)[None]
+    want = ref.paged_attention_ref(t["q"], t["k"], t["v"], t["table"], t["lengths"])
+    dropped = ref.paged_attention_ref(t["q"], t["k"], t["v"], t["table"],
+                                      torch.tensor([(n_live - 1) * split_keys], dtype=torch.int32))
+    assert n_live == 10 and (dropped - want).abs().max() < BF16_TOL
+    assert not chip_smoke.paged_close(torch, dropped, want, BF16_TOL,
+                                      chip_smoke.PAGED_REL_L2_BF16)[0]
+    assert chip_smoke.paged_close(torch, want.to(torch.bfloat16), want, BF16_TOL,
+                                  chip_smoke.PAGED_REL_L2_BF16)[0]
