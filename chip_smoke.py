@@ -70,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -146,8 +147,22 @@ WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
 FLASH_SLICE = (1, 4096, 32, 8, 128)       # qwen3-8b prefill: B, S, H, KV, hd (causal, bf16)
 GEMMA2_SWA = (1, 8192, 32, 16, 128, 4096, 50.0)  # gemma2-27b sliding layer: ..., window, softcap
 FLUSH_GRID = [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12), (256, 2),   # tests
+              (127, 12), (128, 12), (129, 12),   # a set-design tile (128 sets) -1, 0, +1
+              *[(1000, ss) for ss in range(1, 17)],  # every set-design instantiation
+              (37, 17), (37, 64), (300, 256),    # the slot design
               (2100, 12),       # qwen3-8b's KV pool on an 80 GB card: 2.36 MB pages
               (131072, 12)]     # serving scale, 10^5+ sets (kernels/flush_score.py)
+# hits[1:], clock[1:] and valid[1:] of (ns + 1, ss) tensors: not 16-byte
+# aligned, so the set design loads them with per-thread accesses
+FLUSH_VIEWS = [(1000, 7), (1000, 12), (131072, 12), (300, 20)]
+FLUSH_SET_MAX = 16                  # set sizes 1..16 take the set design, above it slot
+FLUSH_TIMED = {
+    # name: sets, set size, input and output copies rotated (each call HBM-fed)
+    "131072x12": (131072, 12, 8),   # 8 x 14.7 MB, over twice the 50 MB L2
+    "1048576x12": (1048576, 12, 1),  # 117 MB by itself
+    "2100x12": (2100, 12, 1),        # qwen3-8b's pool on an 80 GB card: launch-bound
+}
+INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 PREFILL_TOKENS, PREFILL_NEW = 4096, 8
 
 
@@ -543,32 +558,200 @@ def flush_inputs(torch, ns: int, ss: int, rng, device="cuda"):
     return hits, clock.to(device), valid
 
 
+def flush_edge_arrays(ns: int, ss: int, rng) -> tuple:
+    """numpy inputs of the flush scores, (hits (ns, ss) int32, clock (ns,)
+    int32, valid (ns, ss) bool), whose first and last sets hold the edges of
+    the int32 arithmetic: clocks at INT32_MIN, INT32_MIN+1 .. INT32_MIN+ss,
+    -1, 0 and INT32_MAX; hits where hits * ss wraps, hits at INT32_MAX, at
+    INT32_MIN and negative; a set with no valid slot; a valid slot whose d
+    is INT32_MAX, tied with the empty slots; and, at odd ss, a set whose d
+    are all equal under the wrap (at even ss the parity of d is that of the
+    slot's distance, so they cannot be). The sets between are random over
+    the whole int32 range, half of them with hits 0-14, 70 % valid."""
+    every = np.ones(ss, bool)
+
+    def small():
+        return rng.integers(0, 15, size=ss)
+
+    def anywhere():
+        return int(rng.integers(INT32_MIN, INT32_MAX + 1))
+
+    edges = [(small(), c, every) for c in
+             (INT32_MIN, *range(INT32_MIN + 1, INT32_MIN + ss + 1), -1, 0, INT32_MAX)]
+    edges += [(2 ** 31 // ss + rng.integers(-2, 3, size=ss), anywhere(), every),
+              (np.full(ss, INT32_MAX), anywhere(), every),
+              (np.full(ss, INT32_MIN), anywhere(), every),
+              (rng.integers(INT32_MIN, 0, size=ss), anywhere(), every),
+              (small(), anywhere(), np.zeros(ss, bool))]
+    k = ss // 2      # d = (INT32_MAX // ss) * ss + INT32_MAX % ss = INT32_MAX at slot k
+    hits, valid = small(), rng.random(ss) > 0.5
+    hits[k], valid[k] = INT32_MAX // ss, True
+    edges.append((hits, k - INT32_MAX % ss, valid))
+    if ss % 2:       # hits = (d - dist) / ss mod 2**32 gives every slot the same d
+        clock, d = anywhere(), int(rng.integers(0, 2 ** 32))
+        dist = [((((slot - clock) & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000) % ss
+                for slot in range(ss)]
+        edges.append((np.array([(d - x) * pow(ss, -1, 2 ** 32) % 2 ** 32 for x in dist]),
+                      clock, every))
+    hits = np.where(rng.random((ns, 1)) < 0.5, rng.integers(0, 15, size=(ns, ss)),
+                    rng.integers(INT32_MIN, INT32_MAX + 1, size=(ns, ss)))
+    clock = rng.integers(INT32_MIN, INT32_MAX + 1, size=ns)
+    valid = rng.random((ns, ss)) > 0.3
+    for i, (h, c, v) in enumerate(edges[:ns]):
+        for row in (i, ns - 1 - i):
+            hits[row], clock[row], valid[row] = h, c, v
+    return hits.astype(np.int32), clock.astype(np.int32), valid
+
+
+def flush_case(torch, ns: int, ss: int, rng, view: bool = False, device="cuda"):
+    """``flush_edge_arrays`` as tensors; with ``view``, hits[1:], clock[1:]
+    and valid[1:] of tensors one set longer, which are not 16-byte aligned."""
+    n = ns + 1 if view else ns
+    hits, clock, valid = (torch.from_numpy(a).to(device) for a in flush_edge_arrays(n, ss, rng))
+    return (hits[1:], clock[1:], valid[1:]) if view else (hits, clock, valid)
+
+
+def flush_design(ss: int) -> str:
+    return "set" if ss <= FLUSH_SET_MAX else "slot"
+
+
 def phase_flush(torch, seed: int, card: str) -> dict:
+    from repro_torch.kernels import flush_score as flush_mod
     from repro_torch.kernels import ops, ref
 
     rng = np.random.default_rng(seed + 2)
-    for ns, ss in FLUSH_GRID:
-        hits, clock, valid = flush_inputs(torch, ns, ss, rng)
+    by_design = flush_mod.flush_scores.launches_by_design
+    cases = [(ns, ss, False) for ns, ss in FLUSH_GRID] + [(ns, ss, True) for ns, ss in FLUSH_VIEWS]
+    for ns, ss, view in cases:
+        hits, clock, valid = flush_case(torch, ns, ss, rng, view)
+        kind = flush_design(ss)
+        before = dict(by_design)
         out = ops.flush_scores(hits, clock, valid)
         torch.cuda.synchronize()
+        made = {d: by_design[d] - before[d] for d in before}
         same = bool(torch.equal(out, ref.flush_scores_ref(hits, clock, valid)))
-        print(f"[kernels] flush_scores {ns} sets x {ss}: "
-              f"{'equal to' if same else 'DIFFERS from'} the plain version", flush=True)
-        check(same, f"flush_scores {ns} x {ss}: kernel differs from plain version")
-    ns, ss = FLUSH_GRID[-1]
-    hits, clock, valid = flush_inputs(torch, ns, ss, rng)
-    kernel_ms = graph_ms(torch, lambda i: ops.flush_scores(hits, clock, valid), 20)
-    plain_ms = graph_ms(torch, lambda i: ref.flush_scores_ref(hits, clock, valid), 3, reps=5)
+        what = (f"flush_scores {ns} sets x {ss}{' (views [1:])' if view else ''}, int32 edges "
+                f"({kind})")
+        print(f"[kernels] {what}: {'equal to' if same else 'DIFFERS from'} the plain version, "
+              f"launches {made}", flush=True)
+        check(same, f"{what}: kernel differs from plain version")
+        check(made == {d: int(d == kind) for d in made}, f"{what}: not launched as {kind}")
+        del hits, clock, valid, out
+    timed = {name: time_flush(torch, card, rng, *shape) for name, shape in FLUSH_TIMED.items()}
+    return {"cases": len(cases), "max_err": 0.0, **timed["131072x12"], "shapes": timed}
+
+
+def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
+    """Device time of the flush kernel at ``ns`` sets x ``ss`` (CUDA-graph
+    replay), ``copies`` inputs and outputs rotated so that each call reads
+    and writes device memory, not the L2; the same on views of the inputs
+    (hits[1:], clock[1:], valid[1:], which the set design loads with
+    per-thread accesses); the plain version and the bound by bytes. The
+    kernel is first held to the plain version on both, exactly."""
+    from repro_torch.kernels import _build, ops, ref
+
+    ins = [flush_inputs(torch, ns + 1, ss, rng) for _ in range(copies)]
+    aligned = [tuple(x[:-1] for x in t) for t in ins]
+    views = [tuple(x[1:] for x in t) for t in ins]
+    for args, what in ((aligned[0], "aligned"), (views[0], "views [1:]")):
+        check(bool(torch.equal(ops.flush_scores(*args), ref.flush_scores_ref(*args))),
+              f"flush_scores {ns} x {ss} ({what}): kernel differs from plain version")
+    keep = []
+
+    def timed(call, args):
+        keep.clear()
+        ms = graph_ms(torch, lambda i: keep.append(call(*args[i % copies])), max(2 * copies, 4))
+        keep.clear()
+        return ms
+
+    kernel_ms = timed(ops.flush_scores, aligned)
+    view_ms = timed(ops.flush_scores, views)
+    # EXPERIMENT: the set design with loads straight into registers (ss 12)
+    lib = _build.load("flush_score")
+    direct_ms = None
+    if ss == 12 and hasattr(lib, "repro_flush_scores_direct"):
+        fn = lib.repro_flush_scores_direct
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def direct(h, c, v):
+            o = torch.empty_like(h)
+            check(fn(h.data_ptr(), c.data_ptr(), v.data_ptr(), o.data_ptr(), ns, ss,
+                     torch.cuda.current_stream().cuda_stream) == 0, "direct: launch failed")
+            return o
+
+        check(bool(torch.equal(direct(*aligned[0]), ref.flush_scores_ref(*aligned[0]))),
+              "direct: differs from the plain version")
+        direct_ms = timed(direct, aligned)
+    plain_ms = graph_ms(torch, lambda i: ref.flush_scores_ref(*aligned[i % copies]),
+                        min(copies, 3), reps=5)
     moved = ns * ss * (4 + 1 + 4) + ns * 4          # hits, valid, out; clock
     bw = hbm_bytes_per_s(card)
-    print(f"[kernels] flush_scores at {ns} sets x {ss}: device time (CUDA graph replay) kernel "
-          f"{kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, no library call, bound "
-          f"{moved / bw * 1e6:.3f} us by bytes ({moved} B at {bw / 1e12:.2f} TB/s) on {card}",
-          flush=True)
-    del hits, clock, valid
+    bound_ms = moved / bw * 1e3
+    print(f"[kernels] flush_scores at {ns} sets x {ss}, {copies} copies rotated: device time "
+          f"(CUDA graph replay) kernel {kernel_ms * 1e3:.3f} us (views [1:]: "
+          f"{view_ms * 1e3:.3f} us; direct loads: "
+          f"{'%.3f us' % (direct_ms * 1e3) if direct_ms else 'not timed'}), plain "
+          f"{plain_ms * 1e3:.2f} us, no library call, bound {bound_ms * 1e3:.3f} us by bytes "
+          f"({moved} B at {bw / 1e12:.2f} TB/s); kernel / bound {kernel_ms / bound_ms:.2f}x "
+          f"on {card}", flush=True)
+    del ins, aligned, views
     free_memory(torch)
-    return {"cases": len(FLUSH_GRID), "max_err": 0.0, "ms": kernel_ms, "plain_ms": plain_ms,
-            "library_ms": None, "bound_ms": moved / bw * 1e3, "bound_by": "bytes"}
+    return {"ms": kernel_ms, "view_ms": view_ms, "direct_ms": direct_ms, "plain_ms": plain_ms,
+            "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+            "copies": copies, "shape": [ns, ss]}
+
+
+def sass_report(lib: Path) -> tuple[dict, str]:
+    """Per kernel of a built library, from ``cuobjdump -sass``: its SASS
+    instructions (NOPs left out) and each loop (a branch back to an earlier
+    address) with the instructions of its body. Also the SASS text."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None and not m.group(2).startswith("NOP"):
+            cur.append((int(m.group(1), 16), m.group(2)))
+    report = {}
+    for name, ins in funcs.items():
+        loops = []
+        for addr, op in ins:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if m and int(m.group(1), 16) <= addr:
+                top = int(m.group(1), 16)
+                loops.append({"top": hex(top), "branch": hex(addr),
+                              "instructions": sum(top <= a <= addr for a, _ in ins)})
+        report[name] = {"instructions": len(ins), "loops": loops}
+    return report, text
+
+
+def flush_probe(torch, seed: int, card: str) -> dict:
+    """``--flush-probe SRC``: the flush kernel of the port package under SRC
+    (this checkout's, or an earlier commit's unpacked beside it), so two
+    designs can be compared in one run on one card: ``time_flush`` at
+    131,072 and 1,048,576 sets x 12, rotated past the L2, and the SASS of
+    its library (the text into chiprun_out/, one file per source)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flush_score as flush_mod
+
+    flush_mod._kernel()
+    lib = Path(_build._loaded["flush_score"]._name)
+    sass, text = sass_report(lib)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"{lib.stem}.sass").write_text(text)
+    rng = np.random.default_rng(seed + 8)
+    return {"flush_module": flush_mod.__file__, "card": card, "library": lib.name,
+            "sass": sass, **{name: time_flush(torch, card, rng, *FLUSH_TIMED[name])
+                             for name in ("131072x12", "1048576x12")}}
 
 
 # ---------------------------------------------------------------------------
@@ -1211,20 +1394,26 @@ def phase_sa_cache(torch, seed: int, kernels: dict, card: str) -> dict:
         clock=torch.from_numpy(rng.integers(0, ss, size=(ns,)).astype(np.int32)))
     card_state = sa_cache.CacheState(*(None if x is None else x.cuda() for x in cpu))
     torch.cuda.synchronize()
+    before = read_designs(kernels)["flush_scores"]
     t0 = time.perf_counter()
     got = sa_cache.select_flush_candidates(card_state, 6, 2)   # paper: trigger 6, 1-2 per visit
     torch.cuda.synchronize()
     card_ms = (time.perf_counter() - t0) * 1e3
     launches = read_launches(kernels)
+    designs = read_designs(kernels)["flush_scores"]
+    select_designs = {d: designs[d] - before[d] for d in designs}
     want = sa_cache.select_flush_candidates(cpu, 6, 2)
     same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     print(f"[sa-cache] quickstart twin on the card ok; select_flush_candidates at {ns} sets x "
           f"{ss} (trigger 6, 2 per set): {int(want[0].sum())} sets to flush, card "
-          f"{'==' if same else '!='} CPU, {card_ms:.2f} ms on the host clock; launches "
-          f"{launches} on {card}", flush=True)
+          f"{'==' if same else '!='} CPU, {card_ms:.2f} ms on the host clock, flush launches "
+          f"by design {select_designs}; launches {launches} {designs} on {card}", flush=True)
     check(same, "sa-cache: select_flush_candidates on the card differs from the CPU's")
     check(launches["flush_scores"] > 0, "sa-cache: the flush_scores kernel was not launched")
-    return {"launches": launches, "equal": same, "select_ms": card_ms}
+    check(select_designs == {"slot": 0, "set": 1},
+          f"sa-cache: select_flush_candidates launched {select_designs}, not one set kernel")
+    return {"launches": launches, "launches_by_design": designs, "equal": same,
+            "select_ms": card_ms}
 
 
 def _leaves(tree):
@@ -1282,18 +1471,30 @@ def build_all(torch, modules: dict) -> dict:
     check(len(wgmma) == 2, "build: no nvcc report for both wgmma flash kernels (hd 64, 128)")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
               for r in wgmma.values()), "build: the wgmma flash kernel spills registers")
-    return {"seconds": seconds, "wgmma_ptxas": wgmma}
+    flush = ptxas_report(_build.build_logs.get("flush_score", ""))
+    sets = {f: r for f, r in flush.items() if "flush_set_kernel" in f}
+    print(f"[build] flush kernels: {flush}", flush=True)
+    check(len(sets) == FLUSH_SET_MAX, f"build: {len(sets)} set-design flush kernels in the "
+          f"nvcc report, not {FLUSH_SET_MAX}")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+              for r in sets.values()), "build: a set-design flush kernel spills registers")
+    return {"seconds": seconds, "wgmma_ptxas": wgmma, "flush_ptxas": flush}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--decode-probe", metavar="SRC",
-                    help="only time the paged kernel's decode (decode_probe) with the port "
-                         "package found under SRC, print it as one JSON line and exit")
+    probes = ap.add_mutually_exclusive_group()
+    probes.add_argument("--decode-probe", metavar="SRC",
+                        help="only time the paged kernel's decode (decode_probe) with the port "
+                             "package found under SRC, print it as one JSON line and exit")
+    probes.add_argument("--flush-probe", metavar="SRC",
+                        help="only time the flush kernel (flush_probe) with the port package "
+                             "found under SRC, print it as one JSON line and exit")
     args = ap.parse_args()
-    if args.decode_probe:
-        sys.path.insert(0, str(Path(args.decode_probe).resolve()))
+    probe_src = args.decode_probe or args.flush_probe
+    if probe_src:
+        sys.path.insert(0, str(Path(probe_src).resolve()))
 
     import torch
     if not torch.cuda.is_available():
@@ -1313,9 +1514,10 @@ def main() -> int:
     kernels = {"paged_attention": paged_mod.paged_attention,
                "flash_attention": flash_mod.flash_attention,
                "flush_scores": flush_mod.flush_scores}
-    if args.decode_probe:
+    if probe_src:
+        probe = decode_probe if args.decode_probe else flush_probe
         try:
-            print(json.dumps(decode_probe(torch, args.seed, card)), flush=True)
+            print(json.dumps(probe(torch, args.seed, card)), flush=True)
         except SmokeFailure as e:
             print(f"chip_smoke FAILED: {e}", file=sys.stderr)
             return 1
@@ -1382,8 +1584,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
          "launches": sa["launches"]["flush_scores"], "max_abs_err": flush["max_err"],
-         "ms": flush["ms"], "plain_ms": flush["plain_ms"], "bound_ms": flush["bound_ms"],
-         "bound_by": flush["bound_by"], "library": "none", "cases": flush["cases"]},
+         "launches_by_design": sa["launches_by_design"],
+         **{k: flush[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "view_ms",
+                                  "copies")},
+         "library": "none", "cases": flush["cases"],
+         "long_shapes": {name: t for name, t in flush["shapes"].items() if name != "131072x12"}},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,13 +1,16 @@
 """GClock flush scores on the card: the wrapper of ``csrc/flush_score.cu``.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flush_score.py``. The
-kernel's design and what bounds it are described at the top of the ``.cu``
-file; its plain version is ``ref.flush_scores_ref``, which ``ops``
-dispatches to for CPU tensors. This wrapper takes CUDA tensors only: it
-launches the kernel or raises.
+``.cu`` file holds two designs and says at its top what bounds each and why:
+``set`` (a thread per set, the set size a template constant, tiles by bulk
+copy) for set sizes 1-16, and ``slot`` (a thread per slot) for 17-256. Its
+plain version is ``ref.flush_scores_ref``, which ``ops`` dispatches to for
+CPU tensors. This wrapper takes CUDA tensors only: it launches the kernel or
+raises.
 
-``flush_scores.launches`` counts the launches of this process, so a run can
-show that its main path went through the kernel.
+``flush_scores.launches`` counts the launches of this process, and
+``flush_scores.launches_by_design`` splits them by design, so a run can
+show that its main path went through the kernel it expects.
 """
 from __future__ import annotations
 
@@ -17,15 +20,18 @@ import torch
 
 from . import _build
 
-MAX_SET_SIZE = 256      # one block holds whole sets
+MAX_SET_SIZE = 256      # the slot design's block holds whole sets
+DESIGNS = ("slot", "set")          # the entry point's design codes 0 and 1
 _fn = None
+_design_fn = None
 
 
 def _kernel():
-    global _fn
+    global _fn, _design_fn
     if _fn is None:
         _fn = _build.bind("flush_score", "repro_flush_scores",
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        _design_fn = _build.bind("flush_score", "repro_flush_scores_design", [ctypes.c_int])
     return _fn
 
 
@@ -51,12 +57,15 @@ def flush_scores(hits, clock, valid):
     _check(hits, clock, valid)
     fn = _kernel()
     ns, ss = hits.shape
+    kind = DESIGNS[_design_fn(ss)]
     out = torch.empty_like(hits)
     err = fn(hits.data_ptr(), clock.data_ptr(), valid.data_ptr(), out.data_ptr(), ns, ss,
              torch.cuda.current_stream(hits.device).cuda_stream)
     _build.raise_on_error("flush_score", err)
     flush_scores.launches += 1
+    flush_scores.launches_by_design[kind] += 1
     return out
 
 
 flush_scores.launches = 0
+flush_scores.launches_by_design = dict.fromkeys(DESIGNS, 0)

@@ -263,6 +263,59 @@ def test_flush_kernel_matches_plain_version(card, ns, ss):
     assert torch.equal(out, ref.flush_scores_ref(hits, clock, valid))
 
 
+FLUSH_EDGE_CASES = ([(ns, ss, False) for ns, ss in chip_smoke.FLUSH_GRID]
+                    + [(ns, ss, True) for ns, ss in chip_smoke.FLUSH_VIEWS])
+
+
+@pytest.mark.parametrize("ns,ss,view", FLUSH_EDGE_CASES)
+def test_flush_kernel_on_int32_edges(card, ns, ss, view):
+    """chip_smoke.py's grid: the int32 edges of the arithmetic, every set
+    size of the set design, tiles of 128 sets short, whole and past, the
+    slot design, and views [1:] that are not 16-byte aligned (per-thread
+    loads); each launched as the design its set size takes."""
+    hits, clock, valid = chip_smoke.flush_case(torch, ns, ss, np.random.default_rng(ns * ss),
+                                               view)
+    kind = "set" if ss <= 16 else "slot"
+    before = dict(cuda_flush.flush_scores.launches_by_design)
+    out = ops.flush_scores(hits, clock, valid)
+    again = ops.flush_scores(hits, clock, valid)
+    torch.cuda.synchronize()
+    made = {d: n - before[d] for d, n in cuda_flush.flush_scores.launches_by_design.items()}
+    assert made == {"set": 2 * (kind == "set"), "slot": 2 * (kind == "slot")}
+    assert torch.equal(out, ref.flush_scores_ref(hits, clock, valid))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("ss,kind", [(1, "set"), (12, "set"), (16, "set"), (17, "slot"),
+                                     (256, "slot")])
+def test_flush_kernel_launches_by_design(card, ss, kind):
+    hits, clock, valid = chip_smoke.flush_case(torch, 300, ss, np.random.default_rng(ss))
+    fn = cuda_flush.flush_scores
+    before = (fn.launches, dict(fn.launches_by_design))
+    ops.flush_scores(hits, clock, valid)
+    assert fn.launches == before[0] + 1
+    assert {d: n - before[1][d] for d, n in fn.launches_by_design.items()} == {
+        d: int(d == kind) for d in fn.launches_by_design}
+
+
+def test_flush_kernel_in_a_cuda_graph_takes_new_inputs(card):
+    """The set design reads nothing on the host: a captured call replayed
+    with new hits, clocks and valid bits gives the plain version's scores."""
+    rng = np.random.default_rng(23)
+    hits, clock, valid = chip_smoke.flush_case(torch, 1000, 12, rng)
+    ops.flush_scores(hits, clock, valid)                 # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.flush_scores(hits, clock, valid)
+    for _ in range(3):
+        for dst, src in zip((hits, clock, valid), chip_smoke.flush_case(torch, 1000, 12, rng)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref.flush_scores_ref(hits, clock, valid))
+
+
 def test_select_flush_candidates_on_card_equals_cpu(card):
     rng = np.random.default_rng(5)
     ns, ss = 4096, 12
@@ -274,9 +327,10 @@ def test_select_flush_candidates_on_card_equals_cpu(card):
         dirty=torch.from_numpy((rng.random((ns, ss)) > 0.4) & valid),
         clock=torch.from_numpy(rng.integers(0, ss, size=(ns,)).astype(np.int32)))
     on_card = sa_cache.CacheState(*(None if x is None else x.cuda() for x in state))
-    before = cuda_flush.flush_scores.launches
+    before = (cuda_flush.flush_scores.launches, cuda_flush.flush_scores.launches_by_design["set"])
     got = sa_cache.select_flush_candidates(on_card, 6, 2)
-    assert cuda_flush.flush_scores.launches == before + 1
+    assert cuda_flush.flush_scores.launches == before[0] + 1
+    assert cuda_flush.flush_scores.launches_by_design["set"] == before[1] + 1
     for g, w in zip(got, sa_cache.select_flush_candidates(state, 6, 2)):
         assert torch.equal(g.cpu(), w)
 
