@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-  python3 chip_smoke.py [--seed N] [--decode-probe SRC]
+  python3 chip_smoke.py [--seed N] [--decode-probe SRC | --flush-probe SRC]
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
@@ -9,7 +9,7 @@ last line:
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
   2. build    compile the three hand-written CUDA kernels from ``src/``, one
               nvcc each, all at once (timed; registers and spills; fails if
-              the wgmma flash kernel spills);
+              the wgmma flash kernel or a set-design flush kernel spills);
   3. kernels  each kernel against its plain PyTorch version on the card:
               paged attention on the kernel tests' shapes, hd 120, the
               serving shape and the split-K plan's edges (lengths 0, 1, a
@@ -25,9 +25,16 @@ last line:
               2e-5, bf16 2e-2, each launched as the design it expects, two
               runs bitwise equal), then at qwen3-8b's prefill shape and
               gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
-              bound); flush scores exactly equal on the kernel tests' grid
-              and at 2,100 and 131,072 sets of 12; times of each kernel,
-              its plain version and a PyTorch library call, and the bound;
+              bound); flush scores exactly equal on the kernel tests' grid,
+              every set size of the set design (1-16) and the slot design's
+              17, 64 and 256, blocks of 128 sets short, whole and past, views
+              [1:] that are not 16-byte aligned, and 2,100 and 131,072 sets
+              of 12, each set's inputs holding the int32 edges of the
+              arithmetic, each launched as the design its set size takes;
+              then timed at 131,072 and 1,048,576 sets of 12 with inputs and
+              outputs rotated past the L2, and at 2,100 (launch-bound);
+              times of each kernel, its plain version and a PyTorch library
+              call, and the bound;
   4. exact    qwen3-8b at full width in fp32, depth cut to 2 layers: the
               serving engine (flash prefill, paged decode) under pool pressure
               must emit the greedy tokens of prefill + decode with plain
@@ -51,7 +58,7 @@ last line:
               (torch.profiler, 3 steps);
   7. sa-cache the SA-cache twin: the quickstart twin on the card, and
               ``select_flush_candidates`` at 131,072 x 12 on the card equal
-              to the CPU's;
+              to the CPU's, through one launch of the set design;
   8. the kernels line (JSON), the device line, and the result line.
 
 The kernel launch counts are set to 0 just before each of phases 4-7 and
@@ -62,6 +69,9 @@ package under SRC (``src`` of this checkout or of an earlier commit) and
 prints one JSON line with the paged wrapper's host time per call and phase
 6's decode over 4,097+-key contexts (``decode_probe``), so the designs of
 two commits can be compared in one run, say parent, change, change, parent.
+``--flush-probe SRC`` does the same for the flush kernel (``flush_probe``):
+its times at 131,072 and 1,048,576 sets of 12 rotated past the L2, and the
+SASS of its library (``cuobjdump -sass``; the text into chiprun_out/).
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -70,7 +80,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import dataclasses
 import gc
 import json
@@ -147,13 +156,13 @@ WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
 FLASH_SLICE = (1, 4096, 32, 8, 128)       # qwen3-8b prefill: B, S, H, KV, hd (causal, bf16)
 GEMMA2_SWA = (1, 8192, 32, 16, 128, 4096, 50.0)  # gemma2-27b sliding layer: ..., window, softcap
 FLUSH_GRID = [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12), (256, 2),   # tests
-              (127, 12), (128, 12), (129, 12),   # a set-design tile (128 sets) -1, 0, +1
+              (127, 12), (128, 12), (129, 12),   # a set-design block (128 sets) -1, 0, +1
               *[(1000, ss) for ss in range(1, 17)],  # every set-design instantiation
               (37, 17), (37, 64), (300, 256),    # the slot design
               (2100, 12),       # qwen3-8b's KV pool on an 80 GB card: 2.36 MB pages
               (131072, 12)]     # serving scale, 10^5+ sets (kernels/flush_score.py)
 # hits[1:], clock[1:] and valid[1:] of (ns + 1, ss) tensors: not 16-byte
-# aligned, so the set design loads them with per-thread accesses
+# aligned, so the set design stages them through shared memory
 FLUSH_VIEWS = [(1000, 7), (1000, 12), (131072, 12), (300, 20)]
 FLUSH_SET_MAX = 16                  # set sizes 1..16 take the set design, above it slot
 FLUSH_TIMED = {
@@ -611,10 +620,6 @@ def flush_case(torch, ns: int, ss: int, rng, view: bool = False, device="cuda"):
     return (hits[1:], clock[1:], valid[1:]) if view else (hits, clock, valid)
 
 
-def flush_design(ss: int) -> str:
-    return "set" if ss <= FLUSH_SET_MAX else "slot"
-
-
 def phase_flush(torch, seed: int, card: str) -> dict:
     from repro_torch.kernels import flush_score as flush_mod
     from repro_torch.kernels import ops, ref
@@ -624,7 +629,7 @@ def phase_flush(torch, seed: int, card: str) -> dict:
     cases = [(ns, ss, False) for ns, ss in FLUSH_GRID] + [(ns, ss, True) for ns, ss in FLUSH_VIEWS]
     for ns, ss, view in cases:
         hits, clock, valid = flush_case(torch, ns, ss, rng, view)
-        kind = flush_design(ss)
+        kind = "set" if ss <= FLUSH_SET_MAX else "slot"
         before = dict(by_design)
         out = ops.flush_scores(hits, clock, valid)
         torch.cuda.synchronize()
@@ -645,10 +650,10 @@ def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
     """Device time of the flush kernel at ``ns`` sets x ``ss`` (CUDA-graph
     replay), ``copies`` inputs and outputs rotated so that each call reads
     and writes device memory, not the L2; the same on views of the inputs
-    (hits[1:], clock[1:], valid[1:], which the set design loads with
-    per-thread accesses); the plain version and the bound by bytes. The
-    kernel is first held to the plain version on both, exactly."""
-    from repro_torch.kernels import _build, ops, ref
+    (hits[1:], clock[1:], valid[1:], which the set design stages through
+    shared memory); the plain version and the bound by bytes. The kernel is
+    first held to the plain version on both, exactly."""
+    from repro_torch.kernels import ops, ref
 
     ins = [flush_inputs(torch, ns + 1, ss, rng) for _ in range(copies)]
     aligned = [tuple(x[:-1] for x in t) for t in ins]
@@ -666,23 +671,6 @@ def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
 
     kernel_ms = timed(ops.flush_scores, aligned)
     view_ms = timed(ops.flush_scores, views)
-    # EXPERIMENT: the set design with loads straight into registers (ss 12)
-    lib = _build.load("flush_score")
-    direct_ms = None
-    if ss == 12 and hasattr(lib, "repro_flush_scores_direct"):
-        fn = lib.repro_flush_scores_direct
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-        def direct(h, c, v):
-            o = torch.empty_like(h)
-            check(fn(h.data_ptr(), c.data_ptr(), v.data_ptr(), o.data_ptr(), ns, ss,
-                     torch.cuda.current_stream().cuda_stream) == 0, "direct: launch failed")
-            return o
-
-        check(bool(torch.equal(direct(*aligned[0]), ref.flush_scores_ref(*aligned[0]))),
-              "direct: differs from the plain version")
-        direct_ms = timed(direct, aligned)
     plain_ms = graph_ms(torch, lambda i: ref.flush_scores_ref(*aligned[i % copies]),
                         min(copies, 3), reps=5)
     moved = ns * ss * (4 + 1 + 4) + ns * 4          # hits, valid, out; clock
@@ -690,14 +678,13 @@ def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
     bound_ms = moved / bw * 1e3
     print(f"[kernels] flush_scores at {ns} sets x {ss}, {copies} copies rotated: device time "
           f"(CUDA graph replay) kernel {kernel_ms * 1e3:.3f} us (views [1:]: "
-          f"{view_ms * 1e3:.3f} us; direct loads: "
-          f"{'%.3f us' % (direct_ms * 1e3) if direct_ms else 'not timed'}), plain "
+          f"{view_ms * 1e3:.3f} us), plain "
           f"{plain_ms * 1e3:.2f} us, no library call, bound {bound_ms * 1e3:.3f} us by bytes "
           f"({moved} B at {bw / 1e12:.2f} TB/s); kernel / bound {kernel_ms / bound_ms:.2f}x "
           f"on {card}", flush=True)
     del ins, aligned, views
     free_memory(torch)
-    return {"ms": kernel_ms, "view_ms": view_ms, "direct_ms": direct_ms, "plain_ms": plain_ms,
+    return {"ms": kernel_ms, "view_ms": view_ms, "plain_ms": plain_ms,
             "library_ms": None, "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
             "copies": copies, "shape": [ns, ss]}
 
@@ -1474,8 +1461,8 @@ def build_all(torch, modules: dict) -> dict:
     flush = ptxas_report(_build.build_logs.get("flush_score", ""))
     sets = {f: r for f, r in flush.items() if "flush_set_kernel" in f}
     print(f"[build] flush kernels: {flush}", flush=True)
-    check(len(sets) == FLUSH_SET_MAX, f"build: {len(sets)} set-design flush kernels in the "
-          f"nvcc report, not {FLUSH_SET_MAX}")
+    check(len(sets) == 2 * FLUSH_SET_MAX, f"build: {len(sets)} set-design flush kernels in the "
+          f"nvcc report, not {2 * FLUSH_SET_MAX} (set sizes 1-16, aligned or not)")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
               for r in sets.values()), "build: a set-design flush kernel spills registers")
     return {"seconds": seconds, "wgmma_ptxas": wgmma, "flush_ptxas": flush}

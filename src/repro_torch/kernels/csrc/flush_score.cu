@@ -17,32 +17,30 @@
 //
 // What bounds it on this card: 9 bytes read and written per slot and 4 per
 // set (14.7 MB at 131,072 sets x 12, 4.4 us at 3.35 TB/s), so the bytes,
-// provided the instructions issued per set stay well under them. A thread
-// per slot (this file's first design) issued ~2,000 instructions per set of
-// 12: a runtime division and two runtime remainders per slot, and a rank
-// loop over the whole set in every slot, which ranks the set 12 times over.
+// provided the instructions issued per set stay under them. A thread per
+// slot (the slot design below) issues a runtime division and two runtime
+// remainders per slot and ranks the whole set again in every slot.
 //
 // Two designs behind one entry point:
 //
 //   set   (1 <= ss <= 16) one thread per set, ss a template constant, so
-//         the set's d values and ranks live in registers, the clock is
-//         read once per set, mod by the constant ss is a multiply-high and
-//         a fix-up (exact under the int32 wrap), and each unordered pair
-//         of slots is compared once (66 compares at ss 12). Tiles of 128
-//         sets reach shared memory by the bulk-copy engine (1-D
-//         cp.async.bulk: hits 512 ss B, valid 128 ss B, clock 512 B, all
-//         multiples of 16) into a 3-stage mbarrier ring, from a persistent
-//         grid of 2 blocks per SM; scores go back through shared memory by
-//         a bulk store. A tile that is not whole, or inputs that are not
-//         16-byte aligned (a view such as hits[1:]), load with per-thread
-//         coalesced accesses into the same tile, and an output that is not
-//         whole stores the same way. Reading a set's row from shared
-//         memory is free of bank conflicts at every ss but 8 (2-way) and
-//         16 (4-way): 16-byte reads at ss % 4 == 0, 8-byte at ss % 4 == 2,
-//         4-byte at odd ss.
-//   slot  (17 <= ss <= 256) the first design: one thread per (set, slot),
-//         a block of whole sets; each thread writes its d to shared memory
-//         and counts the slots of its set before it.
+//         the set's d values and scores live in registers, the clock is
+//         read once per set, the mod by the constant ss is a multiply-high
+//         and a fix-up (exact under the int32 wrap), and each unordered
+//         pair of slots is compared once (66 compares at ss 12). When the
+//         tensors are 16-byte aligned, each thread loads its set's row
+//         straight into registers in 16-, 8- or 4-byte accesses as the
+//         row's alignment allows; blocks of 128 threads, one wave of them
+//         at 131,072 sets, keep enough loads in flight to stream the
+//         bytes. Otherwise (a view such as hits[1:]) a block stages its
+//         128 sets through shared memory with coalesced 4- and 1-byte
+//         accesses. A persistent grid of 2 blocks per SM that brought
+//         tiles of 128 sets into shared memory by bulk copy (cp.async.bulk
+//         into a 3-stage mbarrier ring) measured slower than the direct
+//         loads at 131,072 and 1,048,576 sets of 12 (PERF.md).
+//   slot  (17 <= ss <= 256) one thread per (set, slot), a block of whole
+//         sets; each thread writes its d to shared memory and counts the
+//         slots of its set before it.
 //
 // The host entry point has a plain C interface (loaded with ctypes), so the
 // file needs no PyTorch headers and builds in seconds. It reads nothing from
@@ -60,80 +58,12 @@ constexpr int kBig = 0x7fffffff;
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxSetSize = 16;   // set sizes 1..16 take the set design
-constexpr int kTile = 128;        // sets per tile = threads per block
-constexpr int kStages = 3;
-constexpr int kBlocksPerSm = 2;
+constexpr int kSetThreads = 128;
 
-template <int SS>
-struct Tile {
-  static constexpr uint32_t kHits = kTile * SS * 4;
-  static constexpr uint32_t kValid = kTile * SS;
-  static constexpr uint32_t kClock = kTile * 4;
-  static constexpr uint32_t kStage = kHits + kValid + kClock;    // a multiple of 16
-  static constexpr uint32_t kOut = kHits;
-  static constexpr uint32_t kBars = kStages * kStage + kOut;     // offset of the mbarriers
-  static constexpr size_t kSmem = kBars + kStages * 8;
-  static_assert(kStage % 16 == 0 && kBars % 16 == 0, "bulk copies need 16-byte offsets");
-  static_assert(kSmem <= 48 * 1024, "more than the default dynamic shared memory");
-};
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// Spin until the phase of the barrier with this parity has completed. A
-// barrier that never completes traps (a launch error) rather than hang.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins == (1u << 28)) __trap();
-  }
-}
-
-// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
-// aligned) from device memory into shared memory, counted on `bar`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(src), "r"(bytes)
-               : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// Orders this thread's writes to shared memory before later bulk copies
-// that read or overwrite it.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// N consecutive 32-bit words from shared memory, in the widest accesses the
-// row's alignment allows (N * 4 * thread bytes from a 16-byte aligned base).
+// N consecutive 32-bit words at p, an address aligned to gcd(4 N, 16), in
+// the widest accesses that allows.
 template <int N>
-__device__ __forceinline__ void lds_words(const void* p, uint32_t (&w)[N]) {
+__device__ __forceinline__ void load_words(const void* p, uint32_t (&w)[N]) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < N / 4; ++q) {
@@ -153,7 +83,7 @@ __device__ __forceinline__ void lds_words(const void* p, uint32_t (&w)[N]) {
 }
 
 template <int N>
-__device__ __forceinline__ void sts_words(void* p, const uint32_t (&w)[N]) {
+__device__ __forceinline__ void store_words(void* p, const uint32_t (&w)[N]) {
   if constexpr (N % 4 == 0) {
 #pragma unroll
     for (int q = 0; q < N / 4; ++q)
@@ -169,15 +99,16 @@ __device__ __forceinline__ void sts_words(void* p, const uint32_t (&w)[N]) {
   }
 }
 
-// Bit k set when slot k of the row of SS valid bytes at p is valid.
+// Bit k set when slot k of the row of SS valid bytes at p (aligned as the
+// row of a 16-byte aligned tensor) is valid.
 template <int SS>
-__device__ __forceinline__ uint32_t lds_valid(const uint8_t* p) {
+__device__ __forceinline__ uint32_t load_valid(const uint8_t* p) {
   uint32_t bits = 0;
   if constexpr (SS % 4 == 0) {
     uint32_t w[SS / 4];
-    lds_words<SS / 4>(p, w);
+    load_words<SS / 4>(p, w);
 #pragma unroll
-    for (int k = 0; k < SS; ++k) bits |= (uint32_t)(((w[k / 4] >> (8 * (k % 4))) & 0xff) != 0) << k;
+    for (int k = 0; k < SS; ++k) bits |= (uint32_t)((w[k / 4] >> (8 * (k % 4)) & 0xff) != 0) << k;
   } else {
 #pragma unroll
     for (int k = 0; k < SS; ++k) bits |= (uint32_t)(p[k] != 0) << k;
@@ -189,152 +120,76 @@ __device__ __forceinline__ uint32_t lds_valid(const uint8_t* p) {
 template <int SS>
 __device__ __forceinline__ void score_set(const uint32_t (&hits)[SS], uint32_t valid, int clock,
                                           uint32_t (&out)[SS]) {
-  int d[SS], rank[SS];
+  int d[SS], score[SS];
 #pragma unroll
   for (int k = 0; k < SS; ++k) {
     const int diff = (int)((uint32_t)k - (uint32_t)clock);     // wraps, as int32 in JAX
     int dist = diff % SS;                                      // by a constant: no division
     dist += dist < 0 ? SS : 0;                                 // non-negative, as jnp.mod
-    const int score = (int)(hits[k] * (uint32_t)SS + (uint32_t)dist);
-    d[k] = (valid >> k) & 1 ? score : kBig;
-    rank[k] = 0;
+    d[k] = (valid >> k) & 1 ? (int)(hits[k] * (uint32_t)SS + (uint32_t)dist) : kBig;
+    score[k] = k;
   }
-  // slot i comes before slot j > i exactly when d_i <= d_j: one compare per pair
+  // Slot i comes before slot j > i exactly when d_i <= d_j, so ss - 1 - rank_k
+  // = k + #{j > k : d_k <= d_j} - #{i < k : d_i <= d_k}: one compare per pair.
 #pragma unroll
   for (int i = 0; i < SS; ++i) {
 #pragma unroll
     for (int j = i + 1; j < SS; ++j) {
-      const int c = d[i] <= d[j];
-      rank[j] += c;
-      rank[i] += 1 - c;
+      const int before = d[i] <= d[j];
+      score[i] += before;
+      score[j] -= before;
     }
   }
 #pragma unroll
-  for (int k = 0; k < SS; ++k) out[k] = (valid >> k) & 1 ? (uint32_t)(SS - 1 - rank[k]) : ~0u;
+  for (int k = 0; k < SS; ++k) out[k] = (valid >> k) & 1 ? (uint32_t)score[k] : ~0u;
 }
 
-// Tile `tile` of n sets into stage memory `st` with per-thread coalesced
-// loads (a tile that is not whole, or inputs that are not 16-byte aligned).
-template <int SS>
-__device__ __forceinline__ void copy_in(uint8_t* st, const int* hits, const uint8_t* valid,
-                                        const int* clock, int64_t set0, int n, int tid) {
-  using T = Tile<SS>;
-  int* sh = reinterpret_cast<int*>(st);
-  uint8_t* sv = st + T::kHits;
-  int* sc = reinterpret_cast<int*>(st + T::kHits + T::kValid);
-  for (int k = tid; k < n * SS; k += kTile) sh[k] = hits[set0 * SS + k];
-  for (int k = tid; k < n * SS; k += kTile) sv[k] = valid[set0 * SS + k];
-  if (tid < n) sc[tid] = clock[set0 + tid];
-}
-
-template <int SS>
-__global__ void __launch_bounds__(kTile)
+// ALIGNED (hits, valid and out 16-byte aligned): each thread loads its
+// set's row straight into registers and stores its scores from them.
+// Otherwise the block stages its sets' rows through shared memory with
+// coalesced word and byte accesses, which at ss 8 and 16 the threads then
+// read with 2- and 4-way bank conflicts.
+template <int SS, bool ALIGNED>
+__global__ void __launch_bounds__(kSetThreads)
 flush_set_kernel(const int* __restrict__ hits, const int* __restrict__ clock,
-                 const uint8_t* __restrict__ valid, int* __restrict__ out, int ns, int bulk_in,
-                 int bulk_out) {
-  using T = Tile<SS>;
-  extern __shared__ __align__(128) uint8_t smem[];
+                 const uint8_t* __restrict__ valid, int* __restrict__ out, int ns) {
   const int tid = threadIdx.x;
-  const int n_tiles = (ns + kTile - 1) / kTile;
-  const int whole = ns / kTile;                  // tiles [0, whole) hold kTile sets
-  uint32_t* sout = reinterpret_cast<uint32_t*>(smem + kStages * T::kStage);
-  const uint32_t bar0 = smem_u32(smem + T::kBars);
-
-  auto load = [&](int tile, int s) {             // thread 0: a whole tile into stage s
-    const uint32_t bar = bar0 + 8 * s;
-    const uint32_t st = smem_u32(smem + s * T::kStage);
-    const int64_t set0 = (int64_t)tile * kTile;
-    mbar_expect_tx(bar, T::kStage);
-    bulk_load(st, hits + set0 * SS, T::kHits, bar);
-    bulk_load(st + T::kHits, valid + set0 * SS, T::kValid, bar);
-    bulk_load(st + T::kHits + T::kValid, clock + set0, T::kClock, bar);
-  };
-
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) mbar_init(bar0 + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0 && bulk_in) {
-    for (int s = 0; s < kStages; ++s) {
-      const int tile = blockIdx.x + s * gridDim.x;
-      if (tile < whole) load(tile, s);
+  const int64_t set0 = (int64_t)blockIdx.x * kSetThreads;
+  const int64_t set = set0 + tid;
+  uint32_t h[SS], scores[SS];
+  if constexpr (ALIGNED) {
+    if (set >= ns) return;
+    load_words<SS>(hits + set * SS, h);
+    score_set<SS>(h, load_valid<SS>(valid + set * SS), clock[set], scores);
+    store_words<SS>(out + set * SS, scores);
+  } else {
+    __shared__ __align__(16) uint32_t sw[kSetThreads * SS];    // hits, then scores
+    __shared__ __align__(16) uint8_t sv[kSetThreads * SS];
+    const int n = ns - set0 < kSetThreads ? (int)(ns - set0) : kSetThreads;
+    for (int k = tid; k < n * SS; k += kSetThreads) {
+      sw[k] = (uint32_t)hits[set0 * SS + k];
+      sv[k] = valid[set0 * SS + k];
     }
-  }
-
-  uint32_t phases = 0;                           // bit s: parity of stage s's next fill
-  for (int i = 0, tile = blockIdx.x; tile < n_tiles; ++i, tile += gridDim.x) {
-    const int s = i % kStages;
-    uint8_t* st = smem + s * T::kStage;
-    const int64_t set0 = (int64_t)tile * kTile;
-    const int n = min(kTile, ns - (int)set0);
-    if (bulk_in && tile < whole) {
-      mbar_wait(bar0 + 8 * s, (phases >> s) & 1);
-      phases ^= 1u << s;
-    } else {
-      copy_in<SS>(st, hits, valid, clock, set0, n, tid);
-      fence_proxy_async();
-      __syncthreads();
-    }
-
-    const bool on = tid < n;
-    uint32_t scores[SS];
-    if (on) {
-      uint32_t h[SS];
-      lds_words<SS>(st + tid * SS * 4, h);
-      const uint32_t v = lds_valid<SS>(st + T::kHits + tid * SS);
-      const int c = reinterpret_cast<const int*>(st + T::kHits + T::kValid)[tid];
-      score_set<SS>(h, v, c, scores);
-    }
-    // the stage is read and, once the last bulk store has read it, so is sout
-    if (tid == 0) asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
     __syncthreads();
-    if (tid == 0 && bulk_in) {
-      const int next = tile + kStages * gridDim.x;
-      if (next < whole) load(next, s);
+    if (tid < n) {
+      load_words<SS>(sw + tid * SS, h);
+      score_set<SS>(h, load_valid<SS>(sv + tid * SS), clock[set], scores);
+      store_words<SS>(sw + tid * SS, scores);
     }
-    if (on) sts_words<SS>(sout + tid * SS, scores);
-    if (bulk_out && tile < whole) {
-      fence_proxy_async();
-      __syncthreads();
-      if (tid == 0) bulk_store(out + set0 * SS, smem_u32(sout), T::kOut);
-    } else {
-      __syncthreads();
-      for (int k = tid; k < n * SS; k += kTile) out[set0 * SS + k] = (int)sout[k];
-    }
+    __syncthreads();
+    for (int k = tid; k < n * SS; k += kSetThreads) out[set0 * SS + k] = (int)sw[k];
   }
-  if (tid == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 template <int SS>
 int launch_set(const int* hits, const int* clock, const uint8_t* valid, int* out, int ns,
                cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (ns + kTile - 1) / kTile;
-  const int grid = tiles < kBlocksPerSm * sms ? tiles : kBlocksPerSm * sms;
-  const int bulk_in = ((uintptr_t)hits | (uintptr_t)clock | (uintptr_t)valid) % 16 == 0;
-  const int bulk_out = (uintptr_t)out % 16 == 0;
-  flush_set_kernel<SS><<<grid, kTile, Tile<SS>::kSmem, stream>>>(hits, clock, valid, out, ns,
-                                                                  bulk_in, bulk_out);
+  const int blocks = (int)(((int64_t)ns + kSetThreads - 1) / kSetThreads);
+  if (((uintptr_t)hits | (uintptr_t)valid | (uintptr_t)out) % 16 == 0)
+    flush_set_kernel<SS, true><<<blocks, kSetThreads, 0, stream>>>(hits, clock, valid, out, ns);
+  else
+    flush_set_kernel<SS, false><<<blocks, kSetThreads, 0, stream>>>(hits, clock, valid, out, ns);
   return (int)cudaGetLastError();
-}
-
-// EXPERIMENT (A/B against the ring, removed after the measurement): the set
-// design with 16-byte loads from device memory straight into registers.
-template <int SS>
-__global__ void __launch_bounds__(kTile)
-flush_direct_kernel(const int* __restrict__ hits, const int* __restrict__ clock,
-                    const uint8_t* __restrict__ valid, int* __restrict__ out, int ns) {
-  const int64_t set = (int64_t)blockIdx.x * kTile + threadIdx.x;
-  if (set >= ns) return;
-  uint32_t h[SS], scores[SS];
-  lds_words<SS>(hits + set * SS, h);
-  score_set<SS>(h, lds_valid<SS>(valid + set * SS), clock[set], scores);
-  sts_words<SS>(out + set * SS, scores);
 }
 
 // ---------------------------------------------------------------------------
@@ -413,15 +268,6 @@ int repro_flush_scores(const int* hits, const int* clock, const uint8_t* valid, 
     default:
       return launch_slot(hits, clock, valid, out, ns, ss, s);
   }
-}
-
-// EXPERIMENT: ss 12 only, 16-byte aligned inputs and output.
-int repro_flush_scores_direct(const int* hits, const int* clock, const uint8_t* valid, int* out,
-                              int ns, int ss, void* stream) {
-  if (ss != 12) return (int)cudaErrorInvalidValue;
-  flush_direct_kernel<12><<<(ns + kTile - 1) / kTile, kTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(hits, clock, valid, out, ns);
-  return (int)cudaGetLastError();
 }
 
 const char* repro_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -2,8 +2,8 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/flush_score.py``. The
 ``.cu`` file holds two designs and says at its top what bounds each and why:
-``set`` (a thread per set, the set size a template constant, tiles by bulk
-copy) for set sizes 1-16, and ``slot`` (a thread per slot) for 17-256. Its
+``set`` (a thread per set, the set size a template constant) for set sizes
+1-16, and ``slot`` (a thread per slot) for 17-256. Its
 plain version is ``ref.flush_scores_ref``, which ``ops`` dispatches to for
 CPU tensors. This wrapper takes CUDA tensors only: it launches the kernel or
 raises.

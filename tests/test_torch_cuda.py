@@ -270,12 +270,12 @@ FLUSH_EDGE_CASES = ([(ns, ss, False) for ns, ss in chip_smoke.FLUSH_GRID]
 @pytest.mark.parametrize("ns,ss,view", FLUSH_EDGE_CASES)
 def test_flush_kernel_on_int32_edges(card, ns, ss, view):
     """chip_smoke.py's grid: the int32 edges of the arithmetic, every set
-    size of the set design, tiles of 128 sets short, whole and past, the
-    slot design, and views [1:] that are not 16-byte aligned (per-thread
-    loads); each launched as the design its set size takes."""
+    size of the set design, blocks of 128 sets short, whole and past, the
+    slot design, and views [1:] that are not 16-byte aligned (staged
+    through shared memory); each launched as the design its set size takes."""
     hits, clock, valid = chip_smoke.flush_case(torch, ns, ss, np.random.default_rng(ns * ss),
                                                view)
-    kind = "set" if ss <= 16 else "slot"
+    kind = "set" if ss <= chip_smoke.FLUSH_SET_MAX else "slot"
     before = dict(cuda_flush.flush_scores.launches_by_design)
     out = ops.flush_scores(hits, clock, valid)
     again = ops.flush_scores(hits, clock, valid)

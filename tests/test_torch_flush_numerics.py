@@ -5,9 +5,10 @@ rehearsed on the CPU.
 vectorised over sets in numpy: the distance ``(slot - clock) mod ss`` as C's
 truncating remainder by the constant ``ss`` on the wrapped int32 difference,
 plus ``ss`` when negative; ``d = hits * ss + dist`` wrapping in 32 bits;
-``INT32_MAX`` for an empty slot; and the ranks from one compare per unordered
-pair of slots (``i < j``: ``c = d_i <= d_j``, ``rank_j += c``,
-``rank_i += 1 - c``). It is held, exactly, to the interpret-mode Pallas kernel
+``INT32_MAX`` for an empty slot; and the scores from one compare per
+unordered pair of slots (``i < j``: ``c = d_i <= d_j``, slot ``i`` before slot
+``j`` when ``c``; ``score_i += c``, ``score_j -= c`` from ``score_k = k``, which
+is ``ss - 1 - rank_k``). It is held, exactly, to the interpret-mode Pallas kernel
 and to the port's plain version on the int32 edges that ``chip_smoke.py``
 also gives the kernel on the card (clocks at and above ``INT32_MIN``, ``-1``,
 ``0``, ``INT32_MAX``; hits that wrap, at ``INT32_MAX``, negative; empty sets;
@@ -15,6 +16,7 @@ a valid ``d`` of ``INT32_MAX``; all-equal ``d``), at every set size the set
 design instantiates (1-16) and at the slot design's 17, 64 and 256.
 """
 import importlib.util
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -38,7 +40,8 @@ SET_SIZES = [*range(1, 17), 17, 64, 256]
 
 
 def _set_design(hits, clock, valid):
-    """(scores, ranks) of the set design, int32 (ns, ss) each."""
+    """(scores, ranks) of the set design, int32 (ns, ss) each; an empty
+    slot's score is -1, its rank that of d = INT32_MAX."""
     ns, ss = hits.shape
     h, c = hits.astype(np.uint32), clock.astype(np.uint32)
     d = np.empty((ns, ss), np.int32)
@@ -48,13 +51,13 @@ def _set_design(hits, clock, valid):
         dist = dist + np.where(dist < 0, np.int32(ss), np.int32(0))
         score = (h[:, k] * np.uint32(ss) + dist.astype(np.uint32)).astype(np.int32)
         d[:, k] = np.where(valid[:, k], score, np.int32(INT32_MAX))
-    rank = np.zeros((ns, ss), np.int32)
+    score = np.broadcast_to(np.arange(ss, dtype=np.int32), (ns, ss)).copy()
     for i in range(ss):
         for j in range(i + 1, ss):
             before = (d[:, i] <= d[:, j]).astype(np.int32)
-            rank[:, j] += before
-            rank[:, i] += 1 - before
-    return np.where(valid, ss - 1 - rank, -1).astype(np.int32), rank
+            score[:, i] += before
+            score[:, j] -= before
+    return np.where(valid, score, np.int32(-1)), ss - 1 - score
 
 
 def _pallas(hits, clock, valid):
@@ -82,8 +85,8 @@ def test_set_design_on_int32_edges(ss):
 
 @pytest.mark.parametrize("ns", [1, 127, 128, 129])
 @pytest.mark.parametrize("ss", [7, 12])
-def test_set_design_around_a_tile(ns, ss):
-    """A tile holds 128 sets: one short of it, one, one past."""
+def test_set_design_around_a_block(ns, ss):
+    """A block of the set design holds 128 sets: one short of it, one, one past."""
     _check(*chip_smoke.flush_edge_arrays(ns, ss, np.random.default_rng(ns + ss)))
 
 
@@ -132,3 +135,14 @@ def test_set_design_ranks_are_a_permutation(data, ss, ns):
     got, rank = _set_design(hits, clock, valid)
     assert (np.sort(rank, axis=1) == np.arange(ss)).all()
     np.testing.assert_array_equal(got, _plain(hits, clock, valid))
+
+
+def test_set_design_range_is_one_source():
+    """The set sizes the .cu instantiates, its kMaxSetSize and the card
+    checks' FLUSH_SET_MAX agree."""
+    src = (Path(__file__).resolve().parents[1] / "src/repro_torch/kernels/csrc/flush_score.cu"
+           ).read_text()
+    limit = int(re.search(r"constexpr int kMaxSetSize = (\d+);", src).group(1))
+    cases = sorted(int(n) for n in re.findall(r"REPRO_SET_CASE\((\d+)\)", src))
+    assert limit == chip_smoke.FLUSH_SET_MAX == 16
+    assert cases == list(range(1, limit + 1))
