@@ -71,7 +71,7 @@ prints one JSON line with the paged wrapper's host time per call and phase
 two commits can be compared in one run, say parent, change, change, parent.
 ``--flush-probe SRC`` does the same for the flush kernel (``flush_probe``):
 its times at 131,072 and 1,048,576 sets of 12 rotated past the L2, and the
-SASS of its library (``cuobjdump -sass``; the text into chiprun_out/).
+SASS of its library (``cuobjdump -sass``; the text beside the library).
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -725,16 +725,14 @@ def flush_probe(torch, seed: int, card: str) -> dict:
     (this checkout's, or an earlier commit's unpacked beside it), so two
     designs can be compared in one run on one card: ``time_flush`` at
     131,072 and 1,048,576 sets x 12, rotated past the L2, and the SASS of
-    its library (the text into chiprun_out/, one file per source)."""
+    its library (the text beside it, as ``<library>.sass``)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import flush_score as flush_mod
 
     flush_mod._kernel()
     lib = Path(_build._loaded["flush_score"]._name)
     sass, text = sass_report(lib)
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / f"{lib.stem}.sass").write_text(text)
+    lib.with_suffix(".sass").write_text(text)
     rng = np.random.default_rng(seed + 8)
     return {"flush_module": flush_mod.__file__, "card": card, "library": lib.name,
             "sass": sass, **{name: time_flush(torch, card, rng, *FLUSH_TIMED[name])
