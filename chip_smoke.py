@@ -20,8 +20,11 @@ last line:
               then timed at the serving shape, decode-4k (B 4, 4,098-4,104
               keys) and decode-32k (B 1, 32,768 keys) beside a page gather +
               SDPA and the bound, with the plan's splits and blocks;
+              paged attention also at olmoe's (H 16, KV 16, hd 128) and
+              granite's (H 16, KV 8, hd 64) decode heads, with 3 and 6 splits;
               flash attention on the kernel tests' cases, the q_offset tail,
-              hd 120 with window 4096 and the wgmma kernel's edges (fp32
+              hd 120 with window 4096, olmoe's and granite's prefill heads
+              (S 512) and the wgmma kernel's edges (fp32
               2e-5, bf16 2e-2, each launched as the design it expects, two
               runs bitwise equal), then at qwen3-8b's prefill shape and
               gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
@@ -35,10 +38,13 @@ last line:
               outputs rotated past the L2, and at 2,100 (launch-bound);
               times of each kernel, its plain version and a PyTorch library
               call, and the bound;
-  4. exact    qwen3-8b at full width in fp32, depth cut to 2 layers: the
-              serving engine (flash prefill, paged decode) under pool pressure
-              must emit the greedy tokens of prefill + decode with plain
-              attention, with preemptions, offloads and fetches all > 0;
+  4. exact    qwen3-8b, olmoe-1b-7b (capacity factor 1.25) and mamba2-780m
+              at full width in fp32, depth cut to 2 layers, and reduced
+              jamba-v0.1-52b: the serving engine (flash prefill, paged decode)
+              under pool pressure must emit the greedy tokens of prefill +
+              decode with plain attention, with preemptions, offloads and
+              fetches all > 0 (for the mamba families, through the port's
+              deviation: a preempted row's mamba state is kept);
   5. serve    qwen3-8b at full width and depth in bf16 (random weights from
               --seed): 12 requests must all finish, with one flash launch per
               layer per request; the first decode step's logits with the
@@ -59,10 +65,18 @@ last line:
   7. sa-cache the SA-cache twin: the quickstart twin on the card, and
               ``select_flush_candidates`` at 131,072 x 12 on the card equal
               to the CPU's, through one launch of the set design;
-  8. the kernels line (JSON), the device line, and the result line.
+  8. families olmoe-1b-7b and mamba2-780m at full width and depth, and
+              jamba-v0.1-52b at one block (8 layers) of its published width,
+              bf16, random weights from --seed, one model at a time: the
+              serve phase's traffic (4 requests for jamba) must all finish;
+              the first decode step's paged launches and logits held to
+              plain attention; tokens/s, the median decode step beside its
+              bound by bytes, paged and flash launches (0 for mamba2), and
+              the device's busy share under torch.profiler;
+  9. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each of phases 4-7 and
-read just after, to show each path ran through its kernels.
+The kernel launch counts are set to 0 just before each run of phases 4-8
+and read just after, to show each path ran through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
 package under SRC (``src`` of this checkout or of an earlier commit) and
@@ -118,7 +132,13 @@ SPLIT_CASES = [                           # 3+ splits on 132 SMs (tests/test_tor
     (6, 32, 4, 64, 16, 24, 160),          # tinyllama heads (group 8)
     (6, 16, 1, 64, 16, 16, 40),           # group 16: two chunks of q heads
     (6, 4, 4, 32, 64, 6, 20),             # pages longer than a tile
+    (6, 16, 16, 128, 16, 24, 160),        # olmoe-1b-7b heads (group 1): 3 splits
+    (6, 16, 8, 64, 16, 24, 160),          # granite-moe-1b-a400m heads (group 2): 6 splits
 ]
+MOE_PAGED_CASES = {                       # B 4, page 16: the families' decode heads
+    "olmoe-decode": (4, 16, 16, 128, 16, 8, 64),
+    "granite-decode": (4, 16, 8, 64, 16, 8, 64),
+}
 SLICE_CASE = (4, 32, 8, 128, 16, 64, 65)  # qwen3-8b decode: B, H, KV, hd, page, max_pages, pool
 PAGED_HEADS = (32, 8, 128, 16)            # qwen3-8b decode: H, KV, hd, page
 PAGED_TIMED = {
@@ -150,6 +170,8 @@ FLASH_CASES = [
     (3, 300, 300, 8, 4, 128, True, 0, 0.0, 0),      # B 3, GQA 2
     (2, 1000, 1000, 4, 2, 64, True, 100, 50.0, 0),  # hd 64
     (1, 1000, 1000, 4, 1, 120, True, 100, 0.0, 0),  # hd 120, GQA 4
+    (1, 512, 512, 16, 16, 128, True, 0, 0.0, 0),    # olmoe-1b-7b prefill heads (group 1)
+    (1, 512, 512, 16, 8, 64, True, 0, 0.0, 0),      # granite-moe-1b-a400m prefill heads
 ]
 NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
 WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
@@ -172,6 +194,7 @@ FLUSH_TIMED = {
     "2100x12": (2100, 12, 1),        # qwen3-8b's pool on an 80 GB card: launch-bound
 }
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
+EXACT_FAMILIES = ("olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b")   # phase 4 beside qwen3-8b
 PREFILL_TOKENS, PREFILL_NEW = 4096, 8
 
 
@@ -287,6 +310,8 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
         cases.append(("len0+page-edges", (5, 4, 2, 16, 8, 4, 16), dtype, [0, 1, 8, 9, 32], 0.0))
         cases.append(("h2o-danube-hd120", DANUBE_CASE, dtype, None, 0.0))
         cases.append(("slice-shape", SLICE_CASE, dtype, None, 0.0))
+        for name, case in MOE_PAGED_CASES.items():
+            cases.append((name, case, dtype, None, 0.0))
         for case in SPLIT_CASES:
             for cap in (0.0, 50.0):
                 cases.append((f"split-edges{case} softcap {cap:g}", case, dtype,
@@ -765,12 +790,30 @@ def dense_greedy(torch, T, params, cfg, prompt, n):
     return out
 
 
-def phase_exact(torch, seed: int, kernels: dict) -> dict:
-    from repro_torch.configs import get_config
+def attn_layers(cfg) -> int:
+    return cfg.n_blocks * sum(spec.kind == "attn" for spec in cfg.block)
+
+
+def exact_config(arch: str):
+    """Phase 4's configuration of ``arch``: the published width in fp32 with
+    the depth cut to 2 layers (olmoe at its published capacity factor,
+    1.25), or, for jamba, the reduced config (2 blocks of 8 layers)."""
+    from repro_torch.configs import get_config, reduced
+
+    if arch == "jamba-v0.1-52b":
+        return reduced(get_config(arch))
+    return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
+
+
+def phase_exact(torch, seed: int, kernels: dict, arch: str = "qwen3-8b") -> dict:
+    """The engine under pool pressure (page 8, 4 x 3 sets, 6 requests of 24
+    new tokens) emits the greedy tokens of prefill + decode with plain
+    attention. For the mamba families that equality is the port's deviation
+    from the reference: the engine keeps a preempted row's mamba state."""
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
 
-    cfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=2, dtype="float32")
+    cfg = exact_config(arch)
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=4, set_size=3,
                       device="cuda")
@@ -784,22 +827,29 @@ def phase_exact(torch, seed: int, kernels: dict) -> dict:
     launches = read_launches(kernels)
     eng.close()
     st = eng.stats()
-    print(f"[exact] qwen3-8b widths fp32, 2 layers, page 8, 4x3 sets, 6 requests: "
+    what = (f"{arch} widths" if arch != "jamba-v0.1-52b" else f"{arch} reduced "
+            f"(d_model {cfg.d_model})")
+    print(f"[exact] {what} fp32, {cfg.n_layers} layers, page 8, 4x3 sets, 6 requests: "
           f"stats {st}, launches {launches}", flush=True)
-    check(all(eng.result(r).state == "done" for r in rids), "exact: a request did not finish")
+    n_attn = attn_layers(cfg)
+    check(all(eng.result(r).state == "done" for r in rids),
+          f"exact {arch}: a request did not finish")
     check(st["preemptions"] > 0 and st["offloads"] > 0 and st["fetches"] > 0,
-          "exact: the pool-pressure path (preempt, offload, fetch) was not exercised")
-    check(launches["paged_attention"] > 0,
-          "exact: the engine did not launch the paged_attention kernel")
-    check(launches["flash_attention"] == cfg.n_layers * len(prompts),
-          f"exact: {launches['flash_attention']} flash launches for {len(prompts)} prefills")
+          f"exact {arch}: the pool-pressure path (preempt, offload, fetch) was not exercised")
+    check((launches["paged_attention"] > 0) == (n_attn > 0),
+          f"exact {arch}: {launches['paged_attention']} paged_attention launches for "
+          f"{n_attn} attention layers")
+    check(launches["flash_attention"] == n_attn * len(prompts),
+          f"exact {arch}: {launches['flash_attention']} flash launches for {len(prompts)} "
+          "prefills")
     with torch.no_grad():
         for rid, p in zip(rids, prompts):
             want = dense_greedy(torch, T, params, cfg, p, 24)
-            check(eng.result(rid).out == want, f"exact: request {rid} differs from dense "
-                  f"decode: {eng.result(rid).out} vs {want}")
-    print("[exact] engine tokens (flash + paged kernels) == tokens of prefill + decode with "
-          "plain attention, for all 6 requests", flush=True)
+            check(eng.result(rid).out == want, f"exact {arch}: request {rid} differs from "
+                  f"dense decode: {eng.result(rid).out} vs {want}")
+    print(f"[exact] {arch}: engine tokens (flash + paged kernels) == tokens of prefill + "
+          f"decode with plain attention, for all 6 requests, under "
+          f"{st['preemptions']} preemptions", flush=True)
     del params, eng
     free_memory(torch)
     return launches
@@ -848,8 +898,8 @@ def checked_paged(torch, kernel_fn, calls: list):
 
 def checked_summary(calls: list) -> dict:
     return {"calls": len(calls), "calls_ok": all(ok for _, _, ok in calls),
-            "call_max_abs_err": max(e for e, _, _ in calls),
-            "call_max_rel_l2": max(r for _, r, _ in calls)}
+            "call_max_abs_err": max((e for e, _, _ in calls), default=0.0),
+            "call_max_rel_l2": max((r for _, r, _ in calls), default=0.0)}
 
 
 class TimedStep:
@@ -858,7 +908,9 @@ class TimedStep:
     The first call runs the step twice on the same inputs: once with the
     plain attention in the kernel's place, for the logits, then with the
     kernel, holding each of its launches to the plain version on the same
-    inputs. Its output is the kernel run's; it is not timed."""
+    inputs. The mamba state the first run writes is put back before the
+    second (the K/V writes are the same both times). Its output is the
+    kernel run's; it is not timed."""
 
     def __init__(self, torch, step_fn):
         self.torch, self.step_fn, self.ms, self.first = torch, step_fn, [], None
@@ -866,17 +918,37 @@ class TimedStep:
     def _first_step(self, args):
         torch = self.torch
         from repro_torch.kernels import ops, ref
-        kernel_fn = ops.paged_attention
-        calls = []
+        from repro_torch.models import moe
+        kernel_fn, route_fn = ops.paged_attention, moe.route
+        calls, routes = [], ([], [])
+        states = [(a, a.clone()) for pool in args[1] for name, a in pool.items()
+                  if name not in ("k", "v")]
+
+        def recorded(run):
+            def route(*a, **kw):
+                out = route_fn(*a, **kw)
+                routes[run].append(out[1].sort(dim=-1).values)
+                return out
+            return route
+
         try:
             ops.paged_attention = ref.paged_attention_ref
+            moe.route = recorded(0)
             plain = self.step_fn(*args)
+            for a, saved in states:
+                a.copy_(saved)
+            del states
             ops.paged_attention = checked_paged(torch, kernel_fn, calls)
+            moe.route = recorded(1)
             got = self.step_fn(*args)
         finally:
-            ops.paged_attention = kernel_fn
+            ops.paged_attention, moe.route = kernel_fn, route_fn
+        # (token, MoE layer) pairs whose top-k expert set differs between the runs
+        flips = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes))
         self.first = {
-            **checked_summary(calls),
+            **checked_summary(calls), "lengths": args[3].tolist(),
+            "active_rows": int(args[5].numel()),
+            "routes": sum(len(a) for a in routes[0]), "route_flips": flips,
             "logits_max_abs_err": (got - plain).abs().max().item(),
             "logits_rel_l2": ((got - plain).norm() / plain.norm()).item(),
             "argmax_equal_rows": int((got.argmax(-1) == plain.argmax(-1)).sum()),
@@ -1004,6 +1076,131 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str) -> dict
     del eng, timed
     free_memory(torch)
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the MoE, Mamba2 and hybrid families at full width
+# ---------------------------------------------------------------------------
+
+def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict:
+    """Bytes a decode step of the engine must move, each read or write once:
+    every weight (the capacity design computes every expert's buffer, so
+    every expert's weights are read; of an untied embedding only the B rows
+    gathered), the mamba state of the B rows read and of the active rows
+    written, the K/V of ``lengths + 1`` keys of each row read and one key of
+    each active row written per attention layer, and the f32 logits."""
+    b = len(lengths)
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    weights = sum(x.numel() * x.element_size() for x in _leaves(params))
+    if not cfg.tie_embeddings:
+        weights -= (params["embed"].shape[0] - b) * cfg.d_model * elem
+    per_row = sum(a[:, 0].numel() * a.element_size()
+                  for i in eng._mamba_positions for a in eng.pools[i].values())
+    key = cfg.n_kv_heads * cfg.head_dim * 2 * elem                   # K and V of one key
+    kv = attn_layers(cfg) * key * (sum(n + 1 for n in lengths) + active)
+    return {"weights": weights, "state": per_row * (b + active), "kv": kv,
+            "logits": b * cfg.vocab * 4}
+
+
+FAMILY_SERVE = {
+    # arch: (layers kept, requests); the serve phase's traffic otherwise
+    "olmoe-1b-7b": (None, 12),
+    "mamba2-780m": (None, 12),
+    "jamba-v0.1-52b": (8, 4),    # one block of its 8-layer period at the published width
+}
+
+
+def phase_families(torch, seed: int, kernels: dict, card: str) -> dict:
+    """olmoe-1b-7b and mamba2-780m at their published width and depth, and
+    jamba-v0.1-52b at one block of its published width, in bf16 with random
+    weights from ``seed``, each through the engine with the serve phase's
+    traffic (prompts of 4-47 tokens, 24 new tokens, batch 4, page 16, 16 x 4
+    sets; 4 requests for jamba), one model freed before the next loads. The
+    first decode step is held to plain attention (each paged launch and the
+    logits); tokens/s, the median step beside its bound by bytes, and the
+    device's busy share under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServeEngine
+
+    results = {}
+    for arch, (layers, n_req) in FAMILY_SERVE.items():
+        cfg = full = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(full, n_layers=layers)
+            print(f"[families] {arch}: depth cut to {layers} of {full.n_layers} layers (one "
+                  f"block at the published width): all {full.n_layers} need "
+                  f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights, beyond one 80 GB "
+                  f"card", flush=True)
+        t0 = time.perf_counter()
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(params))
+        print(f"[families] {arch} bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
+              f"{n_params / 1e9:.3f}B params ({sum(x.numel() * x.element_size() for x in _leaves(params)) / 1e9:.2f} GB) "
+              f"drawn on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+        eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
+                          device="cuda")
+        timed = TimedStep(torch, eng.step_fn)
+        eng.step_fn = timed
+        rng = np.random.default_rng(seed)
+        rids = [eng.submit([int(x) for x in rng.integers(1, cfg.vocab, int(rng.integers(4, 48)))],
+                           max_new=24) for _ in range(n_req)]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        eng.run(max_steps=5000)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches(kernels)
+        done = sum(eng.result(r).state == "done" for r in rids)
+        toks = sum(len(eng.result(r).out) for r in rids)
+        first = timed.first
+        n_attn = attn_layers(cfg)
+        moved = decode_step_bytes(cfg, params, eng, first["lengths"], first["active_rows"])
+        bw = hbm_bytes_per_s(card)
+        bound_ms = sum(moved.values()) / bw * 1e3
+        median = statistics.median(timed.ms)
+        res = {"layers": cfg.n_layers, "published_layers": full.n_layers, "params": n_params,
+               "requests": n_req, "done": done, "tokens": toks, "seconds": dt,
+               "tokens_per_s": toks / dt, "decode_steps": len(timed.ms) + 1,
+               "median_step_ms": median, "step_bound_ms": bound_ms, "step_bytes": moved,
+               "first_step": first, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": launches, "stats": eng.stats(), "card": card}
+        print(f"[families] {arch} first decode step: {first['calls']} paged launches vs plain "
+              f"version max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
+              f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
+              f"{'ok' if first['calls_ok'] else 'FAIL'}; logits vs plain attention: max_abs_err "
+              f"{first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} (tol "
+              f"{BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows"
+              + (f"; MoE routing differs from the plain run in {first['route_flips']} of "
+                 f"{first['routes']} (token, layer) top-{cfg.moe_topk} sets"
+                 if cfg.moe_experts else ""), flush=True)
+        print(f"[families] {arch}: {done}/{n_req} done, {toks} tokens in {dt:.2f} s: "
+              f"{res['tokens_per_s']:.1f} tokens/s, median decode step {median:.2f} ms over "
+              f"{res['decode_steps']} steps; step bound {bound_ms:.3f} ms by bytes ("
+              f"{', '.join(f'{k} {v / 1e9:.4f} GB' for k, v in moved.items())} at "
+              f"{bw / 1e12:.2f} TB/s; first step's lengths {first['lengths']}); peak "
+              f"{res['peak_gb']:.1f} GB; launches {launches}; stats {eng.stats()} on {card}",
+              flush=True)
+        check(done == n_req, f"families {arch}: only {done}/{n_req} requests finished")
+        check(first["calls_ok"] and first["calls"] == n_attn,
+              f"families {arch}: a paged launch of the first decode step differs from the "
+              f"plain version, or {first['calls']} launches for {n_attn} attention layers")
+        check(first["logits_rel_l2"] <= BF16_TOL,
+              f"families {arch}: first-step logits with the kernel differ from plain attention's")
+        check(launches["paged_attention"] == n_attn * res["decode_steps"],
+              f"families {arch}: {launches['paged_attention']} paged launches for "
+              f"{res['decode_steps']} decode steps")
+        check(launches["flash_attention"] == n_attn * n_req,
+              f"families {arch}: {launches['flash_attention']} flash launches for {n_req} "
+              "prefills")
+        res["profile"] = profile_steps(torch, eng, cfg, rng, median, card)
+        eng.close()
+        results[arch] = res
+        del eng, timed, params
+        free_memory(torch)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1516,17 +1713,24 @@ def main() -> int:
         paged = phase_kernels(torch, args.seed, card)
         flash = phase_flash(torch, args.seed, card)
         flush = phase_flush(torch, args.seed, card)
-        # 4-7. the paths
+        # 4-8. the paths
         exact = phase_exact(torch, args.seed, kernels)
+        exact_families = {arch: phase_exact(torch, args.seed, kernels, arch)
+                          for arch in EXACT_FAMILIES}
         cfg, params = full_model(torch, args.seed)
         serve = phase_serve(torch, cfg, params, args.seed, kernels, card)
         prefill = phase_prefill(torch, cfg, params, args.seed, kernels, card)
         del params
         free_memory(torch)
         sa = phase_sa_cache(torch, args.seed, kernels, card)
+        families = phase_families(torch, args.seed, kernels, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+
+    def family_launches(name: str) -> dict:
+        return {"exact_families_launches": {a: n[name] for a, n in exact_families.items()},
+                "families_phase_launches": {a: r["launches"][name] for a, r in families.items()}}
 
     common = {"route": "cuda", "library_ms": None}
     serve_t = paged["timed"]["serve"]
@@ -1551,7 +1755,8 @@ def main() -> int:
          "exact_phase_launches": exact["paged_attention"],
          "prefill_phase_launches": prefill["launches"]["paged_attention"],
          "prefill_decode_step_median_ms": prefill["decode_step_median_ms"],
-         "prefill_decode_paged_device_ms_per_step": prefill["decode_paged_device_ms_per_step"]},
+         "prefill_decode_paged_device_ms_per_step": prefill["decode_paged_device_ms_per_step"],
+         **family_launches("paged_attention")},
         {**common, "name": "flash_attention",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
@@ -1564,7 +1769,8 @@ def main() -> int:
          "cases": flash["cases"], "max_err_fp32": flash["max_err_fp32"],
          "max_err_bf16": flash["max_err_bf16"], "gemma2_swa": flash["gemma2_swa"],
          "serve_phase_launches": serve["launches"]["flash_attention"],
-         "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"]},
+         "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"],
+         **family_launches("flash_attention")},
         {**common, "name": "flush_scores",
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
@@ -1573,14 +1779,16 @@ def main() -> int:
          **{k: flush[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "view_ms",
                                   "copies")},
          "library": "none", "cases": flush["cases"],
-         "long_shapes": {name: t for name, t in flush["shapes"].items() if name != "131072x12"}},
+         "long_shapes": {name: t for name, t in flush["shapes"].items() if name != "131072x12"},
+         **family_launches("flush_scores")},
     ]}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
-         "prefill": prefill,
-         "sa_cache": sa, "exact_launches": exact}, indent=1, default=str))
+         "prefill": prefill, "families": families,
+         "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families},
+        indent=1, default=str))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,7 +3,8 @@
 ``params_from_jax`` takes the JAX parameter tree with its leaves already
 turned into numpy arrays (``jax.tree.map(np.asarray, params)``) and gives the
 port's tree: the same keys, the same stacking over ``n_blocks``, and each
-leaf's own dtype (norm scales stay float32 in a bf16 model).
+leaf's own dtype (in a bf16 model the norm scales, the MoE router and the
+Mamba2 ``A_log``, ``D``, ``dt_bias`` and ``norm`` stay float32).
 ``cache_state_from_jax`` does the same for an SA-cache state. Nothing here
 imports JAX.
 """

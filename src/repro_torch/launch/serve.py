@@ -3,9 +3,16 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b --preset full
 
 ``--preset smoke`` serves the reduced config (CPU-sized), ``full`` the
-published one (qwen3-8b: 16.4 GB of bf16 weights, one H100). Weights are
-random, drawn on the device from ``--seed``. ``--device`` defaults to cuda
-and raises if there is no card.
+published one. Weights are random, drawn on the device from ``--seed``.
+``--device`` defaults to cuda and raises if there is no card.
+
+``--arch`` takes the dense-attention families (tinyllama-1.1b, qwen3-8b,
+gemma2-27b, h2o-danube-3-4b), the MoE families (olmoe-1b-7b,
+granite-moe-1b-a400m) and the Mamba2 and hybrid ones (mamba2-780m,
+jamba-v0.1-52b). In bf16 at ``--preset full``: qwen3-8b 16.4 GB of weights,
+olmoe-1b-7b 13.8 GB, mamba2-780m 1.6 GB, all on one H100; jamba-v0.1-52b's
+103 GB do not fit one 80 GB card (``chip_smoke.py`` serves one full-width
+block of it).
 """
 from __future__ import annotations
 

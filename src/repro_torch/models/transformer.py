@@ -1,5 +1,6 @@
-"""Model assembly for the dense-attention families (tinyllama, qwen3, gemma2,
-h2o-danube), mirroring ``repro/models/transformer.py``.
+"""Model assembly for the dense-attention, MoE, Mamba2 and hybrid families
+(tinyllama, qwen3, gemma2, h2o-danube, olmoe, granite-moe, mamba2, jamba),
+mirroring ``repro/models/transformer.py``.
 
 * The layer stack is ``n_blocks`` repetitions of the config's ``block``
   pattern. Parameters of pattern position ``i`` are stacked over blocks with
@@ -7,22 +8,29 @@ h2o-danube), mirroring ``repro/models/transformer.py``.
   JAX weights drop in; where JAX runs the stack as one ``lax.scan``, the port
   loops over blocks in Python.
 * Train/prefill forward, single-token decode with KV caches (ring buffers
-  for sliding-window layers).
+  for sliding-window layers) and SSM-state caches.
 * Decode caches are updated in place (JAX returns new arrays): the cache
   passed to ``decode_step`` is the one returned, with its lengths advanced.
+* Prefill of a mamba layer rebuilds the conv tail from the last
+  ``ssm_conv - 1`` normed inputs. A prompt shorter than that gets its tail
+  zero-padded at the front, as ``ssm._causal_conv`` pads in forward; the JAX
+  reference builds a short tail there and its first decode step fails.
 
-Mamba, MoE, the whisper encoder and the qwen2-vl vision inputs are not in
-this slice of the port and raise ``NotImplementedError``.
+The whisper encoder and the qwen2-vl vision inputs are not in the port yet
+and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from . import layers as L
+from .moe import init_moe, moe_ffn
+from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step
 
 KPOS_INVALID = (2 ** 31 - 1) // 2   # empty ring slot: always masked
 
@@ -34,11 +42,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the whisper encoder/cross-attention {later}")
     if cfg.vis_tokens or cfg.mrope_sections:
         raise NotImplementedError(f"{cfg.name}: the qwen2-vl vision/M-RoPE path {later}")
-    for spec in cfg.block:
-        if spec.kind != "attn":
-            raise NotImplementedError(f"{cfg.name}: mamba sublayers {later}")
-        if spec.ffn == "moe":
-            raise NotImplementedError(f"{cfg.name}: MoE feed-forward {later}")
 
 
 # ---------------------------------------------------------------------------
@@ -47,12 +50,16 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _init_sublayer(generator, spec: LayerSpec, cfg: ModelConfig, device) -> dict:
     p: dict = {"norm": L.init_rmsnorm(cfg.d_model, device)["scale"],
-               "attn": L.init_attention(generator, cfg, device)}
+               "attn": (L.init_attention(generator, cfg, device) if spec.kind == "attn"
+                        else init_mamba(generator, cfg, device))}
     if cfg.post_norms:
         p["post_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
-    if spec.ffn == "mlp":
+    if spec.ffn in ("mlp", "moe"):
         p["ffn_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
-        p["mlp"] = L.init_mlp(generator, cfg, device=device)
+        if spec.ffn == "mlp":
+            p["mlp"] = L.init_mlp(generator, cfg, device=device)
+        else:
+            p["moe"] = init_moe(generator, cfg, device)
         if cfg.post_norms:
             p["ffn_post_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
     return p
@@ -163,20 +170,36 @@ def logits_fn(params, x, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig):
+    """The sublayer's feed-forward on the residual x. Returns (x, the MoE's
+    aux losses, or None for an MLP or no FFN). The MoE has no post-norm, as
+    in JAX."""
     if spec.ffn == "mlp":
         h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
         h = L.mlp(h, p["mlp"], cfg.act)
         if cfg.post_norms:
             h = L.rmsnorm(h, p["ffn_post_norm"], cfg.norm_eps)
-        x = x + h
-    return x
+        return x + h, None
+    if spec.ffn == "moe":
+        h, losses = moe_ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["moe"], cfg)
+        return x + h, losses
+    return x, None
+
+
+def _add_aux(aux: dict, losses) -> dict:
+    if losses is None:
+        return aux
+    return {k: aux[k] + losses[k] for k in aux}
 
 
 def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions):
-    """One sublayer (attn + ffn) in train/prefill form."""
+    """One sublayer (attn or mamba, then ffn) in train/prefill form.
+    Returns (x, aux losses or None)."""
     h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    h = L.multihead_attention(h, p["attn"], cfg, positions=positions,
-                              window=spec.window, causal=True)
+    if spec.kind == "attn":
+        h = L.multihead_attention(h, p["attn"], cfg, positions=positions,
+                                  window=spec.window, causal=True)
+    else:
+        h = mamba_chunked(h, p["attn"], cfg)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
     return apply_ffn(x + h, p, spec, cfg)
@@ -193,12 +216,14 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None):
     if positions is None:
         positions = _positions(b, s, tokens.device)
     x = embed_tokens(params, tokens, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = {"lb": zero, "z": zero}
     for l in range(cfg.n_blocks):
         for i, spec in enumerate(cfg.block):
-            x = _apply_sublayer(x, layer_params(params["blocks"][i], l), spec, cfg,
-                                positions=positions)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": zero, "z": zero}
+            x, losses = _apply_sublayer(x, layer_params(params["blocks"][i], l), spec, cfg,
+                                        positions=positions)
+            aux = _add_aux(aux, losses)
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def forward_logits(params, tokens, cfg: ModelConfig, **kw):
@@ -213,11 +238,19 @@ def forward_logits(params, tokens, cfg: ModelConfig, **kw):
 
 class DecodeCache(NamedTuple):
     lengths: torch.Tensor    # (B,) tokens already in cache
-    layers: tuple            # per pattern position: {"k","v","kpos"} stacked over blocks
+    layers: tuple            # per pattern position, stacked over blocks: {"k","v","kpos"}
+                             # (attention) or {"conv_x","conv_bc","ssm"} (mamba)
 
 
 def _attn_cache_cap(spec: LayerSpec, max_seq: int) -> int:
     return min(spec.window, max_seq) if spec.window else max_seq
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Zero mamba decode state of ``batch`` rows (``ssm.init_mamba_state``),
+    stacked over n_blocks."""
+    st = init_mamba_state(batch, cfg, device=device)
+    return {k: a[None].repeat(cfg.n_blocks, *([1] * a.dim())) for k, a in st.items()}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> DecodeCache:
@@ -226,6 +259,9 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -
     nb = cfg.n_blocks
     layer_caches = []
     for spec in cfg.block:
+        if spec.kind != "attn":
+            layer_caches.append(init_mamba_cache(cfg, batch, device))
+            continue
         cap = _attn_cache_cap(spec, max_seq)
         shape = (nb, batch, cap, cfg.n_kv_heads, cfg.head_dim)
         layer_caches.append({
@@ -277,12 +313,17 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
     for l in range(cfg.n_blocks):
         for i, spec in enumerate(cfg.block):
             p = layer_params(params["blocks"][i], l)
+            layer_cache = layer_params(cache.layers[i], l)
             h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-            h = _decode_attn_sublayer(h, p["attn"], cfg, layer_params(cache.layers[i], l),
-                                      lengths, positions)
+            if spec.kind == "attn":
+                h = _decode_attn_sublayer(h, p["attn"], cfg, layer_cache, lengths, positions)
+            else:
+                h, new = mamba_decode_step(h, layer_cache, p["attn"], cfg)
+                for k, v in new.items():
+                    layer_cache[k].copy_(v)
             if cfg.post_norms:
                 h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-            x = apply_ffn(x + h, p, spec, cfg)
+            x, _ = apply_ffn(x + h, p, spec, cfg)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_fn(params, x, cfg), DecodeCache(lengths=lengths + 1, layers=cache.layers)
 
@@ -290,6 +331,19 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
 # ---------------------------------------------------------------------------
 # Prefill: trunk forward + cache construction
 # ---------------------------------------------------------------------------
+
+def _conv_tail(h, p, cfg: ModelConfig) -> dict:
+    """The decode state's conv inputs: the last ``ssm_conv - 1`` normed
+    inputs through ``in_x``/``in_bc``, in the config dtype. A shorter prompt
+    is zero-padded at the front, as ``_causal_conv`` pads in forward (the
+    JAX reference keeps the short tail, and its first decode step fails)."""
+    cw1 = cfg.ssm_conv - 1
+    tail = h[:, -cw1:, :]
+    pad = cw1 - tail.shape[1]
+    dt = getattr(torch, cfg.dtype)
+    return {name: F.pad(tail @ p[w], (0, 0, pad, 0)).to(dt)
+            for name, w in (("conv_x", "in_x"), ("conv_bc", "in_bc"))}
+
 
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None):
     """Process the prompt, build the decode cache. Returns (last_logits, cache)."""
@@ -304,6 +358,13 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None):
         for i, spec in enumerate(cfg.block):
             p = layer_params(params["blocks"][i], l)
             hpre = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+            if spec.kind != "attn":
+                h, state = mamba_chunked(hpre, p["attn"], cfg, return_state=True)
+                caches[i].append({**_conv_tail(hpre, p["attn"], cfg), "ssm": state})
+                if cfg.post_norms:
+                    h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
+                x, _ = apply_ffn(x + h, p, spec, cfg)
+                continue
             k, v = L.project_kv(hpre, p["attn"], cfg, positions)
             cap = _attn_cache_cap(spec, max_seq)
             kc = torch.zeros((b, cap, cfg.n_kv_heads, cfg.head_dim), dtype=k.dtype, device=dev)
@@ -316,7 +377,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None):
             vc[:, sl] = v[:, -w:]
             kp[:, sl] = pos.to(torch.int32)[None, :]
             caches[i].append({"k": kc, "v": vc, "kpos": kp})
-            x = _apply_sublayer(x, p, spec, cfg, positions=positions)
+            x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, x[:, -1:, :], cfg)
     cache = DecodeCache(lengths=torch.full((b,), s, dtype=torch.int32, device=dev),

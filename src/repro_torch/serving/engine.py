@@ -20,6 +20,16 @@ each host copy completes before the lock is released (``.to("cpu")`` and
 ``copy_`` from pageable host memory are synchronous). All threads use the
 same CUDA stream, so the device runs the copies in the order the lock let
 them be issued.
+
+Mamba layers keep their state per batch row (``paged_model.init_pools``);
+pages hold attention K/V only, so for an attention-free model (mamba2) the
+page copies are empty, as in JAX. One deviation from the JAX engine: a
+preempted request keeps a copy of its row's mamba state (``_preempt``) and
+gets it back when it resumes (``_refill_row``). The JAX engine rebuilds only
+the page table there, so a resumed mamba row continues from another
+request's state, or from none; keeping the state makes the resumed tokens
+those of dense greedy decode (about 1.6 MB a layer a row for mamba2-780m in
+float32).
 """
 from __future__ import annotations
 
@@ -60,6 +70,8 @@ class Request:
     length: int = 0
     pages: list[int] = field(default_factory=list)     # tags, in order
     stall_steps: int = 0
+    # the row's mamba state while preempted: per mamba position {name: tensor}
+    mamba_state: Optional[dict] = None
 
 
 class ServeEngine:
@@ -77,12 +89,15 @@ class ServeEngine:
         n_data_pages = num_sets * set_size
         self.scratch_page = n_data_pages                  # reserved, never allocated
         self.pools = init_pools(cfg, num_pages=n_data_pages + 1,
-                                page_size=page_size, device=self.device)
+                                page_size=page_size, max_batch=max_batch,
+                                device=self.device)
         self.pool = PagedKVPool(num_sets, set_size, n_targets=2,
                                 copy_out=self._copy_out, copy_in=self._copy_in,
                                 # paper: trigger at half the set (6 of 12)
                                 flush_trigger=max(0, set_size // 2 - 1))
         self.step_fn = make_paged_decode_step(cfg, page_size=page_size)
+        self._attn_positions = [i for i, s in enumerate(cfg.block) if s.kind == "attn"]
+        self._mamba_positions = [i for i, s in enumerate(cfg.block) if s.kind != "attn"]
         self._reqs: dict[int, Request] = {}
         self._waiting: list[int] = []
         self._rows: list[Optional[int]] = [None] * max_batch
@@ -105,8 +120,9 @@ class ServeEngine:
             pid = self.pool.alloc.where.get(tag) if page_id is None else page_id
             if pid is None:
                 return None
-            ks = [p["k"][:, pid].to("cpu", copy=True) for p in self.pools]
-            vs = [p["v"][:, pid].to("cpu", copy=True) for p in self.pools]
+            pools = [self.pools[i] for i in self._attn_positions]
+            ks = [p["k"][:, pid].to("cpu", copy=True) for p in pools]
+            vs = [p["v"][:, pid].to("cpu", copy=True) for p in pools]
         return (ks, vs)
 
     def _copy_in(self, tag: int, data) -> None:
@@ -115,7 +131,7 @@ class ServeEngine:
             if pid is None:
                 return
             ks, vs = data
-            for p, k, v in zip(self.pools, ks, vs):
+            for p, k, v in zip([self.pools[i] for i in self._attn_positions], ks, vs):
                 p["k"][:, pid].copy_(k)
                 p["v"][:, pid].copy_(v)
 
@@ -174,6 +190,9 @@ class ServeEngine:
                 self.pool.offload_now(tag)
                 self.blocking_offloads += 1
         self.pool.alloc.set_pinned(req.pages, False)
+        with self._pools_lock:
+            req.mamba_state = {i: {k: a[:, req.row].clone() for k, a in self.pools[i].items()}
+                               for i in self._mamba_positions}
         self._rows[req.row] = None
         self._tables[req.row, :] = self.scratch_page
         req.state = "preempted"
@@ -242,7 +261,11 @@ class ServeEngine:
         logits, cache = T.prefill(self.params, toks, self.cfg, max_seq=pad)
         # NOTE: prefill caches beyond ``s`` are zeros — masked by lengths.
         with self._pools_lock:
-            for p, lc in zip(self.pools, cache.layers):
+            for i in self._mamba_positions:
+                for k, a in self.pools[i].items():
+                    a[:, row] = cache.layers[i][k][:, 0]
+            for i in self._attn_positions:
+                p, lc = self.pools[i], cache.layers[i]
                 k = lc["k"][:, 0]                          # (nb, pad, kvh, hd)
                 v = lc["v"][:, 0]
                 for tag in req.pages:
@@ -270,8 +293,14 @@ class ServeEngine:
                     self.pool.note_page_full(self.pool.alloc.set_of(tag))
 
     def _refill_row(self, req: Request, tokens: list[int]) -> None:
-        """Resume: pages were fetched back by tag; rebuild the table/row."""
+        """Resume: pages were fetched back by tag; rebuild the table/row, and
+        put back the mamba state kept at ``_preempt`` (the JAX engine does not)."""
         row = req.row
+        with self._pools_lock:
+            for i, st in req.mamba_state.items():
+                for k, a in st.items():
+                    self.pools[i][k][:, row] = a
+        req.mamba_state = None
         self._lengths[row] = req.length          # consumed tokens
         self._tables[row, :] = self.scratch_page
         for pi_tag in req.pages:

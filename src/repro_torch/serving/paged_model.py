@@ -4,7 +4,10 @@ Mirrors ``models/transformer.decode_step``, but attention layers read and
 write the shared page pool through a per-sequence page table instead of
 dense per-sequence ring buffers. Attention always goes through
 ``kernels.ops.paged_attention``: the Hopper kernel on the card, its plain
-version for CPU tensors.
+version for CPU tensors. Mamba layers keep their conv/ssm state per batch
+row (the "pinned pages" of the JAX design), and MoE layers route all B rows
+of the step, active or not, as JAX does: an inactive row takes expert
+capacity too.
 
 The pools are updated in place (the JAX step returns new, immutable pools).
 Background offload threads read pages out of the same tensors, so the engine
@@ -18,15 +21,25 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.ssm import mamba_decode_step
 
 
-def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, device=None):
-    """Per block position, K/V pools stacked over n_blocks:
-    (n_blocks, num_pages, page_size, KV, hd) in the config dtype."""
+def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: int,
+               device=None):
+    """Per block position, stacked over n_blocks: K/V pools (n_blocks,
+    num_pages, page_size, KV, hd) in the config dtype for an attention
+    position, per-row state pools {"conv_x", "conv_bc", "ssm"} (n_blocks,
+    max_batch, ...) for a mamba position (``transformer.init_mamba_cache``)."""
     dt = getattr(torch, cfg.dtype)
     shape = (cfg.n_blocks, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return tuple({"k": torch.zeros(shape, dtype=dt, device=device),
-                  "v": torch.zeros(shape, dtype=dt, device=device)} for _ in cfg.block)
+    pools = []
+    for spec in cfg.block:
+        if spec.kind == "attn":
+            pools.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                          "v": torch.zeros(shape, dtype=dt, device=device)})
+        else:
+            pools.append(T.init_mamba_cache(cfg, max_batch, device))
+    return tuple(pools)
 
 
 def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
@@ -36,9 +49,10 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
     tokens: (B, 1); lengths: (B,) int32 tokens already in the pool;
     page_table: (B, max_pages) int32 pool ids; rows: (n,) int64 indices of the
     active rows. Only the active rows write their new K/V, at
-    ``(page_table[b, len // page], len % page)``; every row attends, over
-    ``lengths + 1`` keys (an inactive row reads the scratch page its table
-    points at, and its output is ignored).
+    ``(page_table[b, len // page], len % page)``, and their new mamba state
+    (JAX's ``where(active, new, old)``: a preempted or empty row's state does
+    not move); every row attends, over ``lengths + 1`` keys (an inactive row
+    reads the scratch page its table points at, and its output is ignored).
     """
     T.check_supported(cfg)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -72,11 +86,17 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
             for i, spec in enumerate(cfg.block):
                 p = T.layer_params(params["blocks"][i], l)
                 hh = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-                hh = attn_sublayer(hh, p["attn"], pools[i]["k"][l], pools[i]["v"][l],
-                                   rows, pids, offs, page_table, lengths1, positions)
+                if spec.kind == "attn":
+                    hh = attn_sublayer(hh, p["attn"], pools[i]["k"][l], pools[i]["v"][l],
+                                       rows, pids, offs, page_table, lengths1, positions)
+                else:
+                    state = T.layer_params(pools[i], l)
+                    hh, new = mamba_decode_step(hh, state, p["attn"], cfg)
+                    for k, v in new.items():
+                        state[k][rows] = v[rows]
                 if cfg.post_norms:
                     hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
-                x = T.apply_ffn(x + hh, p, spec, cfg)
+                x, _ = T.apply_ffn(x + hh, p, spec, cfg)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         return T.logits_fn(params, x, cfg)
 

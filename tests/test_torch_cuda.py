@@ -19,8 +19,10 @@ from repro_torch.kernels import flash_attention as cuda_flash
 from repro_torch.kernels import flush_score as cuda_flush
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as cuda_paged
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serving import ServeEngine
+from repro_torch.serving.paged_model import init_pools, make_paged_decode_step
 
 pytestmark = pytest.mark.cuda
 
@@ -33,6 +35,8 @@ PAGED_CASES = [
     (4, 32, 8, 128, 16, 64, 65),      # qwen3-8b decode
     (2, 4, 2, 16, 8, 4, 16),          # reduced configs (hd 16)
     (2, 32, 8, 120, 16, 8, 32),       # h2o-danube decode (hd 120)
+    (4, 16, 16, 128, 16, 8, 64),      # olmoe-1b-7b decode (group 1)
+    (4, 16, 8, 64, 16, 8, 64),        # granite-moe-1b-a400m decode (group 2)
 ]
 TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
 # and relative L2 over the whole output (chip_smoke.py's, which says why)
@@ -161,6 +165,8 @@ FLASH_CASES = [
     (1, 300, 300, 4, 2, 120, True, 70, 0.0, 0),    # hd 120, tiles skipped by the window
     (1, 520, 520, 32, 8, 128, True, 0, 0.0, 0),    # qwen3-8b heads
     (1, 8, 16, 2, 1, 16, True, 4, 0.0, 16),        # rows with no key give 0
+    (1, 512, 512, 16, 16, 128, True, 0, 0.0, 0),   # olmoe-1b-7b prefill heads (group 1)
+    (1, 512, 512, 16, 8, 64, True, 0, 0.0, 0),     # granite-moe-1b-a400m prefill heads
 ]
 FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -362,3 +368,44 @@ def test_engine_through_kernel_matches_dense_decode(card, monkeypatch):
                 lg, cache = T.decode_step(params, t, cache, cfg)
                 t = lg[:, -1].argmax(-1)[:, None]
             assert eng.result(rid).out == want
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, device) for v in tree)
+    return tree.to(device, copy=True)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b"])
+def test_moe_and_mamba_step_on_card_match_cpu(card, arch):
+    """One paged decode step of a reduced MoE, Mamba2 or hybrid model in fp32
+    on the card (the paged kernel, cuBLAS) equals the same step on the CPU
+    (plain attention) within 2e-5: logits, K/V and mamba state; the MoE
+    routing of the step's inputs is identical."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    pools = init_pools(cfg, num_pages=13, page_size=8, max_batch=4)
+    gen = torch.Generator().manual_seed(1)
+    for p in pools:
+        for a in p.values():
+            a.copy_(torch.randn(a.shape, generator=gen) * 0.5)
+    table = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+    args = (torch.tensor([[3], [4], [5], [6]]), torch.tensor([5, 20, 0, 9], dtype=torch.int32),
+            table, torch.tensor([0, 1, 3]))
+    step = make_paged_decode_step(cfg, page_size=8)
+    card_pools = _to(pools, card)
+    got = step(_to(params, card), card_pools, *_to(args, card))
+    want = step(params, pools, *args)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+    for p, cp in zip(pools, card_pools):
+        for k in p:
+            torch.testing.assert_close(cp[k].cpu(), p[k], atol=2e-5, rtol=2e-5)
+    if cfg.moe_experts:
+        i = next(i for i, spec in enumerate(cfg.block) if spec.ffn == "moe")
+        moe = T.layer_params(params["blocks"][i]["moe"], 0)
+        x = torch.randn((4 * 16, cfg.d_model), generator=gen)
+        _, idx, _ = M.route(x, moe, cfg)
+        _, card_idx, _ = M.route(x.to(card), _to(moe, card), cfg)
+        assert torch.equal(card_idx.cpu(), idx)

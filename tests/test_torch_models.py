@@ -262,8 +262,7 @@ def test_transformer_module_holds_the_tree():
     _close(model.to("cpu")(toks), want.numpy(), 0.0)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-780m", "olmoe-1b-7b", "whisper-tiny",
-                                  "qwen2-vl-72b", "jamba-v0.1-52b"])
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
 def test_later_slice_families_raise(arch):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.init_params(reduced(get_config(arch)), torch.Generator().manual_seed(0))
