@@ -44,13 +44,17 @@ last line:
               under pool pressure must emit the greedy tokens of prefill +
               decode with plain attention, with preemptions, offloads and
               fetches all > 0 (for the mamba families, through the port's
-              deviation: a preempted row's mamba state is kept);
+              deviation: a preempted row's mamba state is kept); the MoE
+              assignments dropped at capacity are counted, and olmoe also
+              serves one 256-token prompt, whose prefill must drop some,
+              with the same token check;
   5. serve    qwen3-8b at full width and depth in bf16 (random weights from
               --seed): 12 requests must all finish, with one flash launch per
-              layer per request; the first decode step's logits with the
-              kernel must match those with the plain version, each paged
-              launch of that step too; tokens/s and the median decode-step
-              time;
+              attention layer per request; the first decode step's logits
+              with the kernel must match those with the plain version, each
+              paged launch of that step too; tokens/s, the median decode
+              step beside its bound by bytes, and the device's busy share
+              under torch.profiler;
   6. prefill  the same model and weights: 3 requests of 4,096-token prompts
               through the engine (page 16, 32 x 12 sets); each flash launch
               of the first prefill held to the plain version and launched
@@ -68,11 +72,10 @@ last line:
   8. families olmoe-1b-7b and mamba2-780m at full width and depth, and
               jamba-v0.1-52b at one block (8 layers) of its published width,
               bf16, random weights from --seed, one model at a time: the
-              serve phase's traffic (4 requests for jamba) must all finish;
-              the first decode step's paged launches and logits held to
-              plain attention; tokens/s, the median decode step beside its
-              bound by bytes, paged and flash launches (0 for mamba2), and
-              the device's busy share under torch.profiler;
+              serve phase itself (4 requests for jamba), with its checks
+              (paged and flash launches 0 for mamba2); the first step's MoE
+              layers take the plain run's experts, and the expert sets the
+              kernel run's router would have picked otherwise are counted;
   9. the kernels line (JSON), the device line, and the result line.
 
 The kernel launch counts are set to 0 just before each run of phases 4-8
@@ -195,6 +198,7 @@ FLUSH_TIMED = {
 }
 INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 EXACT_FAMILIES = ("olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b")   # phase 4 beside qwen3-8b
+DROP_PROMPT = {"olmoe-1b-7b": 256}   # phase 4: a prompt whose prefill drops at capacity 1.25
 PREFILL_TOKENS, PREFILL_NEW = 4096, 8
 
 
@@ -778,7 +782,7 @@ def dense_greedy(torch, T, params, cfg, prompt, n):
     kernel_fn = ops.flash_attention
     try:
         ops.flash_attention = ref.flash_attention_ref
-        last, cache = T.prefill(params, toks, cfg, max_seq=128)
+        last, cache = T.prefill(params, toks, cfg, max_seq=max(128, len(prompt) + n))
     finally:
         ops.flash_attention = kernel_fn
     out = []
@@ -805,35 +809,80 @@ def exact_config(arch: str):
     return dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
 
 
-def phase_exact(torch, seed: int, kernels: dict, arch: str = "qwen3-8b") -> dict:
-    """The engine under pool pressure (page 8, 4 x 3 sets, 6 requests of 24
-    new tokens) emits the greedy tokens of prefill + decode with plain
-    attention. For the mamba families that equality is the port's deviation
-    from the reference: the engine keeps a preempted row's mamba state."""
+@contextlib.contextmanager
+def counting_drops(drops: list):
+    """Appends the MoE assignments each dispatch drops at capacity."""
+    from repro_torch.models import moe
+
+    dispatch_fn = moe.dispatch
+
+    def dispatch(idx, n_experts, cap):
+        keep, dest = dispatch_fn(idx, n_experts, cap)
+        drops.append(int((~keep).sum()))
+        return keep, dest
+
+    moe.dispatch = dispatch
+    try:
+        yield
+    finally:
+        moe.dispatch = dispatch_fn
+
+
+def exact_run(torch, cfg, params, kernels: dict, arch: str, prompts: list, max_new: int,
+              sets: tuple[int, int]) -> tuple[dict, dict, int]:
+    """The engine (page 8, ``sets`` = (sets, set size)) serves ``prompts``;
+    each request's tokens must be the greedy tokens of prefill + decode with
+    plain attention. Returns the launches and stats of the engine's run and
+    the MoE assignments it dropped at capacity."""
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
 
-    cfg = exact_config(arch)
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=4, set_size=3,
-                      device="cuda")
-    rng = np.random.default_rng(3)
-    prompts = [[int(x) for x in rng.integers(1, 250, int(rng.integers(3, 20)))]
-               for _ in range(6)]
-    rids = [eng.submit(p, max_new=24) for p in prompts]
+    eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=sets[0],
+                      set_size=sets[1], device="cuda")
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    drops = []
     zero_launches(kernels)
-    eng.run(800)
+    with counting_drops(drops):
+        eng.run(800)
     torch.cuda.synchronize()
     launches = read_launches(kernels)
     eng.close()
     st = eng.stats()
     what = (f"{arch} widths" if arch != "jamba-v0.1-52b" else f"{arch} reduced "
             f"(d_model {cfg.d_model})")
-    print(f"[exact] {what} fp32, {cfg.n_layers} layers, page 8, 4x3 sets, 6 requests: "
-          f"stats {st}, launches {launches}", flush=True)
-    n_attn = attn_layers(cfg)
+    print(f"[exact] {what} fp32, {cfg.n_layers} layers, page 8, {sets[0]}x{sets[1]} sets, "
+          f"{len(prompts)} requests (prompts of {min(map(len, prompts))}-{max(map(len, prompts))} "
+          f"tokens): stats {st}, launches {launches}, MoE assignments dropped at capacity "
+          f"{sum(drops)} (of {len(drops)} dispatches)", flush=True)
     check(all(eng.result(r).state == "done" for r in rids),
           f"exact {arch}: a request did not finish")
+    with torch.no_grad():
+        for rid, p in zip(rids, prompts):
+            want = dense_greedy(torch, T, params, cfg, p, max_new)
+            check(eng.result(rid).out == want, f"exact {arch}: request {rid} differs from "
+                  f"dense decode: {eng.result(rid).out} vs {want}")
+    print(f"[exact] {arch}: engine tokens (flash + paged kernels) == tokens of prefill + "
+          f"decode with plain attention, for all {len(prompts)} requests, under "
+          f"{st['preemptions']} preemptions", flush=True)
+    return launches, st, sum(drops)
+
+
+def phase_exact(torch, seed: int, kernels: dict, arch: str = "qwen3-8b") -> dict:
+    """The engine under pool pressure (page 8, 4 x 3 sets, 6 requests of 24
+    new tokens) emits the greedy tokens of prefill + decode with plain
+    attention. For the mamba families that equality is the port's deviation
+    from the reference: the engine keeps a preempted row's mamba state. For
+    olmoe at capacity 1.25 one ``DROP_PROMPT`` prompt (32 x 4 sets, no
+    pressure) must drop assignments in its prefill and still match."""
+    from repro_torch.models import transformer as T
+
+    cfg = exact_config(arch)
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    rng = np.random.default_rng(3)
+    prompts = [[int(x) for x in rng.integers(1, 250, int(rng.integers(3, 20)))]
+               for _ in range(6)]
+    launches, st, drops = exact_run(torch, cfg, params, kernels, arch, prompts, 24, (4, 3))
+    n_attn = attn_layers(cfg)
     check(st["preemptions"] > 0 and st["offloads"] > 0 and st["fetches"] > 0,
           f"exact {arch}: the pool-pressure path (preempt, offload, fetch) was not exercised")
     check((launches["paged_attention"] > 0) == (n_attn > 0),
@@ -842,15 +891,15 @@ def phase_exact(torch, seed: int, kernels: dict, arch: str = "qwen3-8b") -> dict
     check(launches["flash_attention"] == n_attn * len(prompts),
           f"exact {arch}: {launches['flash_attention']} flash launches for {len(prompts)} "
           "prefills")
-    with torch.no_grad():
-        for rid, p in zip(rids, prompts):
-            want = dense_greedy(torch, T, params, cfg, p, 24)
-            check(eng.result(rid).out == want, f"exact {arch}: request {rid} differs from "
-                  f"dense decode: {eng.result(rid).out} vs {want}")
-    print(f"[exact] {arch}: engine tokens (flash + paged kernels) == tokens of prefill + "
-          f"decode with plain attention, for all 6 requests, under "
-          f"{st['preemptions']} preemptions", flush=True)
-    del params, eng
+    launches = {**launches, "moe_dropped": drops}
+    if arch in DROP_PROMPT:
+        long_prompt = [int(x) for x in rng.integers(1, 250, DROP_PROMPT[arch])]
+        _, _, long_drops = exact_run(torch, cfg, params, kernels, arch, [long_prompt], 8,
+                                     (32, 4))
+        check(long_drops > 0, f"exact {arch}: the {len(long_prompt)}-token prompt dropped "
+              f"no MoE assignment at capacity factor {cfg.moe_capacity_factor}")
+        launches["moe_dropped_long_prompt"] = long_drops
+    del params
     free_memory(torch)
     return launches
 
@@ -909,8 +958,11 @@ class TimedStep:
     plain attention in the kernel's place, for the logits, then with the
     kernel, holding each of its launches to the plain version on the same
     inputs. The mamba state the first run writes is put back before the
-    second (the K/V writes are the same both times). Its output is the
-    kernel run's; it is not timed."""
+    second (the K/V writes are the same both times). The kernel run's MoE
+    layers take the plain run's experts and weights, so that its logits
+    differ by the attention's error alone; the (token, layer) expert sets
+    its own router would have picked otherwise are counted (``route_flips``).
+    Its output is the kernel run's; it is not timed."""
 
     def __init__(self, torch, step_fn):
         self.torch, self.step_fn, self.ms, self.first = torch, step_fn, [], None
@@ -920,7 +972,7 @@ class TimedStep:
         from repro_torch.kernels import ops, ref
         from repro_torch.models import moe
         kernel_fn, route_fn = ops.paged_attention, moe.route
-        calls, routes = [], ([], [])
+        calls, routes, plain_routes = [], ([], []), []
         states = [(a, a.clone()) for pool in args[1] for name, a in pool.items()
                   if name not in ("k", "v")]
 
@@ -928,7 +980,11 @@ class TimedStep:
             def route(*a, **kw):
                 out = route_fn(*a, **kw)
                 routes[run].append(out[1].sort(dim=-1).values)
-                return out
+                if run == 0:
+                    plain_routes.append(out)
+                    return out
+                w, idx, _ = plain_routes[len(routes[1]) - 1]
+                return w, idx, out[2]
             return route
 
         try:
@@ -1004,84 +1060,6 @@ def profile_steps(torch, eng, cfg, rng, median_step_ms: float, card: str) -> dic
     return out
 
 
-def full_model(torch, seed: int):
-    """qwen3-8b at its published width and depth, bf16, random weights drawn
-    on the card from ``seed``; phases 5 and 6 share them."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
-
-    cfg = get_config("qwen3-8b")
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
-    print(f"[serve] qwen3-8b bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
-          f"{n_params / 1e9:.3f}B params drawn on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return cfg, params
-
-
-def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str) -> dict:
-    from repro_torch.serving import ServeEngine
-
-    eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
-                      device="cuda")
-    timed = TimedStep(torch, eng.step_fn)
-    eng.step_fn = timed
-    rng = np.random.default_rng(seed)
-    rids = []
-    for _ in range(12):
-        n = int(rng.integers(4, 48))
-        rids.append(eng.submit([int(x) for x in rng.integers(1, cfg.vocab, n)], max_new=24))
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches(kernels)
-    t0 = time.perf_counter()
-    eng.run(max_steps=5000)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = read_launches(kernels)
-    done = sum(eng.result(r).state == "done" for r in rids)
-    toks = sum(len(eng.result(r).out) for r in rids)
-    first = timed.first
-    res = {"done": done, "requests": len(rids), "tokens": toks, "seconds": dt,
-           "tokens_per_s": toks / dt, "decode_steps": len(timed.ms) + 1,
-           "median_step_ms": statistics.median(timed.ms), "first_step": first,
-           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches, "stats": eng.stats(), "card": card}
-    print(f"[serve] first decode step: {first['calls']} kernel launches vs plain version on the "
-          f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
-          f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
-          f"{'ok' if first['calls_ok'] else 'FAIL'}; logits with kernel vs with plain attention: "
-          f"max_abs_err {first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} "
-          f"(tol {BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows",
-          flush=True)
-    print(f"[serve] {done}/{len(rids)} done, {toks} tokens in {dt:.2f} s: "
-          f"{res['tokens_per_s']:.1f} tokens/s, median decode step "
-          f"{res['median_step_ms']:.2f} ms over {res['decode_steps']} steps, peak "
-          f"{res['peak_gb']:.1f} GB, launches {launches} on {card}", flush=True)
-    print(f"[serve] stats {eng.stats()} on {card}", flush=True)
-    check(first["calls_ok"] and first["calls"] == cfg.n_layers,
-          "serve: a kernel launch of the first decode step differs from the plain version")
-    check(first["logits_rel_l2"] <= BF16_TOL,
-          "serve: first-step logits with the kernel differ from those with plain attention")
-    check(done == len(rids), f"serve: only {done}/{len(rids)} requests finished")
-    check(launches["paged_attention"] == cfg.n_layers * res["decode_steps"],
-          f"serve: {launches['paged_attention']} paged launches for {res['decode_steps']} "
-          "decode steps")
-    check(launches["flash_attention"] == cfg.n_layers * len(rids),
-          f"serve: {launches['flash_attention']} flash launches for {len(rids)} prefills")
-    check(launches["paged_combine"] > 0, "serve: the paged combine kernel was not launched")
-    res["profile"] = profile_steps(torch, eng, cfg, rng, res["median_step_ms"], card)
-    eng.close()
-    del eng, timed
-    free_memory(torch)
-    return res
-
-
-# ---------------------------------------------------------------------------
-# phase 8: the MoE, Mamba2 and hybrid families at full width
-# ---------------------------------------------------------------------------
-
 def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict:
     """Bytes a decode step of the engine must move, each read or write once:
     every weight (the capacity design computes every expert's buffer, so
@@ -1102,6 +1080,111 @@ def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict
             "logits": b * cfg.vocab * 4}
 
 
+def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str = "[serve]"):
+    """``arch`` at its published width and depth (or its first ``layers``
+    layers), bf16, random weights drawn on the card from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = full = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(full, n_layers=layers)
+        print(f"{tag} {arch}: depth cut to {layers} of {full.n_layers} layers (one block at "
+              f"the published width): all {full.n_layers} need "
+              f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights, beyond one 80 GB card",
+              flush=True)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    torch.cuda.synchronize()
+    leaves = _leaves(params)
+    print(f"{tag} {arch} bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
+          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B params "
+          f"({sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} GB) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, params
+
+
+def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: int = 12,
+                tag: str = "[serve]") -> dict:
+    """``n_req`` requests (prompts of 4-47 tokens, 24 new tokens) through the
+    engine at batch 4, page 16, 16 x 4 sets. The first decode step is held to
+    plain attention (each paged launch and the logits, ``TimedStep``);
+    tokens/s, the median step beside its bound by bytes, the launches, and
+    the device's busy share under torch.profiler."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import ServeEngine
+
+    eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
+                      device="cuda")
+    timed = TimedStep(torch, eng.step_fn)
+    eng.step_fn = timed
+    rng = np.random.default_rng(seed)
+    rids = []
+    for _ in range(n_req):
+        n = int(rng.integers(4, 48))
+        rids.append(eng.submit([int(x) for x in rng.integers(1, cfg.vocab, n)], max_new=24))
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    eng.run(max_steps=5000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_launches(kernels)
+    done = sum(eng.result(r).state == "done" for r in rids)
+    toks = sum(len(eng.result(r).out) for r in rids)
+    first = timed.first
+    n_attn = attn_layers(cfg)
+    moved = decode_step_bytes(cfg, params, eng, first["lengths"], first["active_rows"])
+    bw = hbm_bytes_per_s(card)
+    bound_ms = sum(moved.values()) / bw * 1e3
+    median = statistics.median(timed.ms)
+    res = {"layers": cfg.n_layers, "published_layers": get_config(cfg.name).n_layers,
+           "params": sum(x.numel() for x in _leaves(params)), "requests": n_req,
+           "done": done, "tokens": toks, "seconds": dt, "tokens_per_s": toks / dt,
+           "decode_steps": len(timed.ms) + 1, "median_step_ms": median,
+           "step_bound_ms": bound_ms, "step_bytes": moved, "first_step": first,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "stats": eng.stats(), "card": card}
+    print(f"{tag} first decode step: {first['calls']} paged launches vs plain version on the "
+          f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
+          f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
+          f"{'ok' if first['calls_ok'] else 'FAIL'}; logits with kernel vs with plain attention: "
+          f"max_abs_err {first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} "
+          f"(tol {BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows"
+          + (f"; the kernel run's own router would pick another top-{cfg.moe_topk} set in "
+             f"{first['route_flips']} of {first['routes']} (token, layer) pairs"
+             if cfg.moe_experts else ""), flush=True)
+    print(f"{tag} {done}/{n_req} done, {toks} tokens in {dt:.2f} s: "
+          f"{res['tokens_per_s']:.1f} tokens/s, median decode step {median:.2f} ms over "
+          f"{res['decode_steps']} steps; step bound {bound_ms:.3f} ms by bytes ("
+          f"{', '.join(f'{k} {v / 1e9:.4f} GB' for k, v in moved.items())} at "
+          f"{bw / 1e12:.2f} TB/s; first step's lengths {first['lengths']}); peak "
+          f"{res['peak_gb']:.1f} GB, launches {launches} on {card}", flush=True)
+    print(f"{tag} stats {eng.stats()} on {card}", flush=True)
+    check(first["calls_ok"] and first["calls"] == n_attn,
+          f"{tag}: a paged launch of the first decode step differs from the plain version, "
+          f"or {first['calls']} launches for {n_attn} attention layers")
+    check(first["logits_rel_l2"] <= BF16_TOL,
+          f"{tag}: first-step logits with the kernel differ from those with plain attention")
+    check(done == n_req, f"{tag}: only {done}/{n_req} requests finished")
+    check(launches["paged_attention"] == n_attn * res["decode_steps"],
+          f"{tag}: {launches['paged_attention']} paged launches for {res['decode_steps']} "
+          "decode steps")
+    check(launches["flash_attention"] == n_attn * n_req,
+          f"{tag}: {launches['flash_attention']} flash launches for {n_req} prefills")
+    check(n_attn == 0 or launches["paged_combine"] > 0,
+          f"{tag}: the paged combine kernel was not launched")
+    res["profile"] = profile_steps(torch, eng, cfg, rng, median, card)
+    eng.close()
+    del eng, timed
+    free_memory(torch)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the MoE, Mamba2 and hybrid families at full width
+# ---------------------------------------------------------------------------
+
 FAMILY_SERVE = {
     # arch: (layers kept, requests); the serve phase's traffic otherwise
     "olmoe-1b-7b": (None, 12),
@@ -1111,94 +1194,15 @@ FAMILY_SERVE = {
 
 
 def phase_families(torch, seed: int, kernels: dict, card: str) -> dict:
-    """olmoe-1b-7b and mamba2-780m at their published width and depth, and
-    jamba-v0.1-52b at one block of its published width, in bf16 with random
-    weights from ``seed``, each through the engine with the serve phase's
-    traffic (prompts of 4-47 tokens, 24 new tokens, batch 4, page 16, 16 x 4
-    sets; 4 requests for jamba), one model freed before the next loads. The
-    first decode step is held to plain attention (each paged launch and the
-    logits); tokens/s, the median step beside its bound by bytes, and the
-    device's busy share under torch.profiler."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import transformer as T
-    from repro_torch.serving import ServeEngine
-
+    """The serve phase for olmoe-1b-7b and mamba2-780m at their published
+    width and depth, and jamba-v0.1-52b at one block of its published width
+    (4 requests), bf16, one model freed before the next loads."""
     results = {}
     for arch, (layers, n_req) in FAMILY_SERVE.items():
-        cfg = full = get_config(arch)
-        if layers:
-            cfg = dataclasses.replace(full, n_layers=layers)
-            print(f"[families] {arch}: depth cut to {layers} of {full.n_layers} layers (one "
-                  f"block at the published width): all {full.n_layers} need "
-                  f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights, beyond one 80 GB "
-                  f"card", flush=True)
-        t0 = time.perf_counter()
-        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-        torch.cuda.synchronize()
-        n_params = sum(x.numel() for x in _leaves(params))
-        print(f"[families] {arch} bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
-              f"{n_params / 1e9:.3f}B params ({sum(x.numel() * x.element_size() for x in _leaves(params)) / 1e9:.2f} GB) "
-              f"drawn on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-        eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
-                          device="cuda")
-        timed = TimedStep(torch, eng.step_fn)
-        eng.step_fn = timed
-        rng = np.random.default_rng(seed)
-        rids = [eng.submit([int(x) for x in rng.integers(1, cfg.vocab, int(rng.integers(4, 48)))],
-                           max_new=24) for _ in range(n_req)]
-        torch.cuda.reset_peak_memory_stats()
-        zero_launches(kernels)
-        t0 = time.perf_counter()
-        eng.run(max_steps=5000)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = read_launches(kernels)
-        done = sum(eng.result(r).state == "done" for r in rids)
-        toks = sum(len(eng.result(r).out) for r in rids)
-        first = timed.first
-        n_attn = attn_layers(cfg)
-        moved = decode_step_bytes(cfg, params, eng, first["lengths"], first["active_rows"])
-        bw = hbm_bytes_per_s(card)
-        bound_ms = sum(moved.values()) / bw * 1e3
-        median = statistics.median(timed.ms)
-        res = {"layers": cfg.n_layers, "published_layers": full.n_layers, "params": n_params,
-               "requests": n_req, "done": done, "tokens": toks, "seconds": dt,
-               "tokens_per_s": toks / dt, "decode_steps": len(timed.ms) + 1,
-               "median_step_ms": median, "step_bound_ms": bound_ms, "step_bytes": moved,
-               "first_step": first, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               "launches": launches, "stats": eng.stats(), "card": card}
-        print(f"[families] {arch} first decode step: {first['calls']} paged launches vs plain "
-              f"version max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
-              f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
-              f"{'ok' if first['calls_ok'] else 'FAIL'}; logits vs plain attention: max_abs_err "
-              f"{first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} (tol "
-              f"{BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows"
-              + (f"; MoE routing differs from the plain run in {first['route_flips']} of "
-                 f"{first['routes']} (token, layer) top-{cfg.moe_topk} sets"
-                 if cfg.moe_experts else ""), flush=True)
-        print(f"[families] {arch}: {done}/{n_req} done, {toks} tokens in {dt:.2f} s: "
-              f"{res['tokens_per_s']:.1f} tokens/s, median decode step {median:.2f} ms over "
-              f"{res['decode_steps']} steps; step bound {bound_ms:.3f} ms by bytes ("
-              f"{', '.join(f'{k} {v / 1e9:.4f} GB' for k, v in moved.items())} at "
-              f"{bw / 1e12:.2f} TB/s; first step's lengths {first['lengths']}); peak "
-              f"{res['peak_gb']:.1f} GB; launches {launches}; stats {eng.stats()} on {card}",
-              flush=True)
-        check(done == n_req, f"families {arch}: only {done}/{n_req} requests finished")
-        check(first["calls_ok"] and first["calls"] == n_attn,
-              f"families {arch}: a paged launch of the first decode step differs from the "
-              f"plain version, or {first['calls']} launches for {n_attn} attention layers")
-        check(first["logits_rel_l2"] <= BF16_TOL,
-              f"families {arch}: first-step logits with the kernel differ from plain attention's")
-        check(launches["paged_attention"] == n_attn * res["decode_steps"],
-              f"families {arch}: {launches['paged_attention']} paged launches for "
-              f"{res['decode_steps']} decode steps")
-        check(launches["flash_attention"] == n_attn * n_req,
-              f"families {arch}: {launches['flash_attention']} flash launches for {n_req} "
-              "prefills")
-        res["profile"] = profile_steps(torch, eng, cfg, rng, median, card)
-        eng.close()
-        results[arch] = res
-        del eng, timed, params
+        cfg, params = load_model(torch, arch, seed, layers, tag="[families]")
+        results[arch] = phase_serve(torch, cfg, params, seed, kernels, card, n_req,
+                                    tag=f"[families] {arch}")
+        del params
         free_memory(torch)
     return results
 
@@ -1530,7 +1534,7 @@ def decode_probe(torch, seed: int, card: str) -> dict:
             torch, lambda: ops.paged_attention(q, kp[0], vp[0], table, lens))
         del q, kp, vp
     free_memory(torch)
-    cfg, params = full_model(torch, seed)
+    cfg, params = load_model(torch, "qwen3-8b", seed)
     page = 16
     eng = ServeEngine(cfg, params, max_batch=2, page_size=page, num_sets=32, set_size=12,
                       max_pages=PREFILL_TOKENS // page + 8, device="cuda")
@@ -1717,7 +1721,7 @@ def main() -> int:
         exact = phase_exact(torch, args.seed, kernels)
         exact_families = {arch: phase_exact(torch, args.seed, kernels, arch)
                           for arch in EXACT_FAMILIES}
-        cfg, params = full_model(torch, args.seed)
+        cfg, params = load_model(torch, "qwen3-8b", args.seed)
         serve = phase_serve(torch, cfg, params, args.seed, kernels, card)
         prefill = phase_prefill(torch, cfg, params, args.seed, kernels, card)
         del params

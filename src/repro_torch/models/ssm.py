@@ -80,20 +80,28 @@ def _gated_out(y, z, params, cfg: ModelConfig, dtype):
     return y @ params["out_proj"]
 
 
-def mamba_chunked(x, params, cfg: ModelConfig, chunk: int = 256,
+CHUNK = 256
+
+
+def check_length(s: int, chunk: int = CHUNK) -> None:
+    """Raise ``ValueError`` unless a sequence of ``s`` tokens is at most
+    ``chunk`` or a multiple of it (the JAX reference asserts the same)."""
+    if s > chunk and s % chunk:
+        raise ValueError(f"mamba_chunked: a sequence of {s} tokens is longer than the SSD "
+                         f"chunk {chunk} and not a multiple of it; pad the prompt to a "
+                         f"multiple of {chunk} or cut it to at most {chunk} tokens")
+
+
+def mamba_chunked(x, params, cfg: ModelConfig, chunk: int = CHUNK,
                   initial_state=None, return_state: bool = False):
     """x: (B, S, d_model) -> (B, S, d_model); with ``return_state`` also the
     final ssm state (B, H, N, hd) f32. Prefill form.
 
-    S must be at most ``chunk`` or a multiple of it (the JAX reference
-    asserts the same)."""
+    S must be at most ``chunk`` or a multiple of it (``check_length``)."""
     b, s, _ = x.shape
     di, n, h, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    check_length(s, chunk)
     L = min(chunk, s)
-    if s % L:
-        raise ValueError(f"mamba_chunked: a sequence of {s} tokens is longer than the SSD "
-                         f"chunk {L} and not a multiple of it; pad the prompt to a multiple "
-                         f"of {L} or cut it to at most {L} tokens")
     nc = s // L
     xr = x @ params["in_x"]
     z = x @ params["in_z"]

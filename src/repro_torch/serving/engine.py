@@ -28,8 +28,9 @@ preempted request keeps a copy of its row's mamba state (``_preempt``) and
 gets it back when it resumes (``_refill_row``). The JAX engine rebuilds only
 the page table there, so a resumed mamba row continues from another
 request's state, or from none; keeping the state makes the resumed tokens
-those of dense greedy decode (about 1.6 MB a layer a row for mamba2-780m in
-float32).
+those of dense greedy decode. The copy is kept in host memory, as the host
+tier keeps pages, so preempted requests hold no device memory: about 1.6 MB
+a layer a row for mamba2-780m in float32, 76 MB over its 48 layers.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from .kv_pool import PagedKVPool
 from .paged_model import init_pools, make_paged_decode_step
@@ -70,7 +72,8 @@ class Request:
     length: int = 0
     pages: list[int] = field(default_factory=list)     # tags, in order
     stall_steps: int = 0
-    # the row's mamba state while preempted: per mamba position {name: tensor}
+    # the row's mamba state while preempted, in host memory:
+    # per mamba position {name: tensor}
     mamba_state: Optional[dict] = None
 
 
@@ -137,6 +140,11 @@ class ServeEngine:
 
     # ------------------------------------------------------------ public
     def submit(self, prompt: list[int], max_new: int = 16) -> int:
+        """Queue a request. A prompt the mamba prefill cannot take (longer
+        than its chunk and not a multiple of it) raises here, before any
+        engine state changes."""
+        if self._mamba_positions:
+            ssm.check_length(len(prompt))
         rid = next(self._rid)
         self._reqs[rid] = Request(rid, list(prompt), max_new)
         self._waiting.append(rid)
@@ -191,7 +199,8 @@ class ServeEngine:
                 self.blocking_offloads += 1
         self.pool.alloc.set_pinned(req.pages, False)
         with self._pools_lock:
-            req.mamba_state = {i: {k: a[:, req.row].clone() for k, a in self.pools[i].items()}
+            req.mamba_state = {i: {k: a[:, req.row].to("cpu", copy=True)
+                                   for k, a in self.pools[i].items()}
                                for i in self._mamba_positions}
         self._rows[req.row] = None
         self._tables[req.row, :] = self.scratch_page
@@ -299,7 +308,7 @@ class ServeEngine:
         with self._pools_lock:
             for i, st in req.mamba_state.items():
                 for k, a in st.items():
-                    self.pools[i][k][:, row] = a
+                    self.pools[i][k][:, row].copy_(a)
         req.mamba_state = None
         self._lengths[row] = req.length          # consumed tokens
         self._tables[row, :] = self.scratch_page

@@ -409,3 +409,31 @@ def test_moe_and_mamba_step_on_card_match_cpu(card, arch):
         _, idx, _ = M.route(x, moe, cfg)
         _, card_idx, _ = M.route(x.to(card), _to(moe, card), cfg)
         assert torch.equal(card_idx.cpu(), idx)
+
+
+def test_preempted_mamba_state_waits_in_host_memory(card):
+    """Deviation (a) on the card: a preempted row's mamba state is kept in
+    host memory, and the resumed request's tokens are dense greedy decode's."""
+    cfg = reduced(get_config("mamba2-780m"))
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), card)
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=8, num_sets=8, set_size=2,
+                      device=card)
+    prompt = [5, 7, 11, 13, 17]
+    rid = eng.submit(prompt, max_new=8)
+    eng.step()
+    eng.step()
+    req = eng.result(rid)
+    eng._preempt(req)
+    assert all(a.device.type == "cpu" for st in req.mamba_state.values() for a in st.values())
+    eng._waiting.append(rid)
+    eng.run(50)
+    eng.close()
+    with torch.no_grad():
+        last, cache = T.prefill(params, torch.tensor([prompt], device=card), cfg, max_seq=128)
+        t = last[:, -1].argmax(-1)[:, None]
+        want = []
+        for _ in range(8):
+            want.append(int(t[0, 0]))
+            lg, cache = T.decode_step(params, t, cache, cfg)
+            t = lg[:, -1].argmax(-1)[:, None]
+    assert req.state == "done" and req.out == want

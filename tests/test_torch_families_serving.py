@@ -114,6 +114,58 @@ def test_engine_exact_under_pool_pressure(arch):
     eng.close()
 
 
+@pytest.mark.parametrize("arch", MAMBA_FAMILIES)
+def test_preempted_row_keeps_its_mamba_state_in_host_memory(arch):
+    """Deviation (a): ``_preempt`` copies the row's mamba state into host
+    memory (a copy, not a view of the pools, so preempted requests hold no
+    device memory) and ``_refill_row`` writes it back when the request
+    resumes, whatever the row held meanwhile."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=8, num_sets=8, set_size=2,
+                      device="cpu")
+    rid = eng.submit(PROMPTS[0], max_new=8)
+    eng.step()
+    eng.step()
+    req = eng.result(rid)
+    live = {i: {k: a[:, req.row].clone() for k, a in eng.pools[i].items()}
+            for i in eng._mamba_positions}
+    eng._preempt(req)
+    assert req.state == "preempted" and set(req.mamba_state) == set(live) != set()
+    for i, st in req.mamba_state.items():
+        for k, a in st.items():
+            assert a.device.type == "cpu"
+            assert a.untyped_storage().data_ptr() != eng.pools[i][k].untyped_storage().data_ptr()
+            torch.testing.assert_close(a, live[i][k], atol=0, rtol=0)
+            eng.pools[i][k].zero_()          # the row is another request's now
+    eng._waiting.append(rid)
+    eng.run(50)
+    eng.close()
+    assert req.state == "done" and req.mamba_state is None
+    assert req.out == _dense_greedy(params, cfg, PROMPTS[0], 8)
+
+
+@pytest.mark.parametrize("arch, n, refused", [
+    ("mamba2-780m", 300, True), ("jamba-v0.1-52b", 257, True),
+    ("mamba2-780m", 512, False), ("mamba2-780m", 255, False), ("olmoe-1b-7b", 300, False)])
+def test_submit_checks_the_mamba_prefill_length(arch, n, refused):
+    """A prompt the mamba prefill cannot take (longer than its 256-token
+    chunk and not a multiple of it) is refused by ``submit``, before any
+    engine state changes; other lengths, and models without mamba layers,
+    are queued."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=8, num_sets=8, set_size=2,
+                      device="cpu")
+    if refused:
+        with pytest.raises(ValueError, match="not a multiple of it"):
+            eng.submit([1] * n, max_new=4)
+        assert eng._waiting == [] and eng._reqs == {} and eng._rows == [None, None]
+        n = 5
+    assert eng.submit([1] * n, max_new=4) == 0 and eng._waiting == [0]
+    eng.close()
+
+
 def test_attention_free_engine_copies_empty_pages():
     """mamba2 has no attention layer: pages hold no K/V, so the host-tier
     copies are empty lists, as in JAX."""
