@@ -1096,7 +1096,7 @@ def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str 
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     torch.cuda.synchronize()
-    leaves = _leaves(params)
+    leaves = list(_leaves(params))
     print(f"{tag} {arch} bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
           f"{sum(x.numel() for x in leaves) / 1e9:.3f}B params "
           f"({sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} GB) drawn on the "
