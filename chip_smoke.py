@@ -24,7 +24,10 @@ last line:
               granite's (H 16, KV 8, hd 64) decode heads, with 3 and 6 splits;
               flash attention on the kernel tests' cases, the q_offset tail,
               hd 120 with window 4096, olmoe's and granite's prefill heads
-              (S 512) and the wgmma kernel's edges (fp32
+              (S 512), whisper-tiny's encoder (1,500 x 1,500 frames, non-causal,
+              hd 64) and cross-attention (4 queries over 1,500 keys),
+              qwen2-vl-72b's prefill heads (S 1,088, group 8, hd 128; its decode
+              heads for paged too) and the wgmma kernel's edges (fp32
               2e-5, bf16 2e-2, each launched as the design it expects, two
               runs bitwise equal), then at qwen3-8b's prefill shape and
               gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
@@ -76,9 +79,21 @@ last line:
               (paged and flash launches 0 for mamba2); the first step's MoE
               layers take the plain run's experts, and the expert sets the
               kernel run's router would have picked otherwise are counted;
-  9. the kernels line (JSON), the device line, and the result line.
+  9. encdec   whisper-tiny at its published size, bf16, through the model API
+     vision   (the engine serves no encoder-decoder model, nor does JAX's): 4
+              clips of 1,500 random frames, a 4-token prefix, 64 greedy
+              tokens; the first decode step held to one after a plain-attention
+              prefill; encoder and prefill ms, the median step beside its bound
+              by bytes, the busy share, all 12 flash launches wgmma; in fp32
+              (simt) the kernel route's tokens equal the plain route's;
+              qwen2-vl-72b at its published width, 24 of 80 layers (47.1 GB
+              of bf16 weights), random weights from --seed: a prefill of
+              1,024 random patch embeddings and 64 text tokens held to a
+              plain-attention prefill, then the serve phase on text prompts
+              (M-RoPE positions); at 2 layers in fp32, phase 4's exact check;
+ 10. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each run of phases 4-8
+The kernel launch counts are set to 0 just before each run of phases 4-9
 and read just after, to show each path ran through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
@@ -137,10 +152,12 @@ SPLIT_CASES = [                           # 3+ splits on 132 SMs (tests/test_tor
     (6, 4, 4, 32, 64, 6, 20),             # pages longer than a tile
     (6, 16, 16, 128, 16, 24, 160),        # olmoe-1b-7b heads (group 1): 3 splits
     (6, 16, 8, 64, 16, 24, 160),          # granite-moe-1b-a400m heads (group 2): 6 splits
+    (6, 64, 8, 128, 16, 24, 160),         # qwen2-vl-72b heads (group 8 at hd 128)
 ]
-MOE_PAGED_CASES = {                       # B 4, page 16: the families' decode heads
+FAMILY_PAGED_CASES = {                    # B 4, page 16: the families' decode heads
     "olmoe-decode": (4, 16, 16, 128, 16, 8, 64),
     "granite-decode": (4, 16, 8, 64, 16, 8, 64),
+    "qwen2-vl-decode": (4, 64, 8, 128, 16, 8, 64),
 }
 SLICE_CASE = (4, 32, 8, 128, 16, 64, 65)  # qwen3-8b decode: B, H, KV, hd, page, max_pages, pool
 PAGED_HEADS = (32, 8, 128, 16)            # qwen3-8b decode: H, KV, hd, page
@@ -175,6 +192,9 @@ FLASH_CASES = [
     (1, 1000, 1000, 4, 1, 120, True, 100, 0.0, 0),  # hd 120, GQA 4
     (1, 512, 512, 16, 16, 128, True, 0, 0.0, 0),    # olmoe-1b-7b prefill heads (group 1)
     (1, 512, 512, 16, 8, 64, True, 0, 0.0, 0),      # granite-moe-1b-a400m prefill heads
+    (4, 1500, 1500, 6, 6, 64, False, 0, 0.0, 0),    # whisper-tiny encoder: ragged 128-key tail
+    (4, 4, 1500, 6, 6, 64, False, 0, 0.0, 0),       # whisper-tiny cross-attention: 124 rows past Sq
+    (1, 1088, 1088, 64, 8, 128, True, 0, 0.0, 0),   # qwen2-vl-72b vision prefill (group 8)
 ]
 NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
 WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
@@ -200,6 +220,12 @@ INT32_MIN, INT32_MAX = -2 ** 31, 2 ** 31 - 1
 EXACT_FAMILIES = ("olmoe-1b-7b", "mamba2-780m", "jamba-v0.1-52b")   # phase 4 beside qwen3-8b
 DROP_PROMPT = {"olmoe-1b-7b": 256}   # phase 4: a prompt whose prefill drops at capacity 1.25
 PREFILL_TOKENS, PREFILL_NEW = 4096, 8
+# phase 9: whisper-tiny transcribes 4 clips of 30 s (1,500 frames each) from a
+# 4-token start-of-transcript prefix, 64 greedy tokens; qwen2-vl-72b at 24 of
+# its 80 layers (47.1 GB of bf16 weights: all 80 need 145.4 GB) prefills
+# 1,024 patch embeddings and 64 text tokens, then serves the serve traffic
+WHISPER_CLIPS, WHISPER_PROMPT, WHISPER_NEW = 4, 4, 64
+VISION_LAYERS, VISION_TEXT = 24, 64
 
 
 class SmokeFailure(Exception):
@@ -314,7 +340,7 @@ def phase_kernels(torch, seed: int, card: str) -> dict:
         cases.append(("len0+page-edges", (5, 4, 2, 16, 8, 4, 16), dtype, [0, 1, 8, 9, 32], 0.0))
         cases.append(("h2o-danube-hd120", DANUBE_CASE, dtype, None, 0.0))
         cases.append(("slice-shape", SLICE_CASE, dtype, None, 0.0))
-        for name, case in MOE_PAGED_CASES.items():
+        for name, case in FAMILY_PAGED_CASES.items():
             cases.append((name, case, dtype, None, 0.0))
         for case in SPLIT_CASES:
             for cap in (0.0, 50.0):
@@ -772,26 +798,78 @@ def flush_probe(torch, seed: int, card: str) -> dict:
 # phase 4: exactness at full width under pool pressure
 # ---------------------------------------------------------------------------
 
-def dense_greedy(torch, T, params, cfg, prompt, n):
-    """Greedy tokens of dense prefill + decode with plain attention: the
-    plain flash version stands in ``ops`` for the kernel during prefill
-    (dense decode has no kernel)."""
-    from repro_torch.kernels import ops, ref
+@contextlib.contextmanager
+def flash_stand_in(make):
+    """``make(kernel_fn)`` stands in ``ops`` for the flash kernel."""
+    from repro_torch.kernels import ops
 
-    toks = torch.tensor([prompt], device="cuda")
     kernel_fn = ops.flash_attention
+    ops.flash_attention = make(kernel_fn)
     try:
-        ops.flash_attention = ref.flash_attention_ref
-        last, cache = T.prefill(params, toks, cfg, max_seq=max(128, len(prompt) + n))
+        yield
     finally:
         ops.flash_attention = kernel_fn
-    out = []
-    t = last[:, -1, :].argmax(-1)[:, None]
-    for _ in range(n):
-        out.append(int(t[0, 0]))
-        lg, cache = T.decode_step(params, t, cache, cfg)
-        t = lg[:, -1, :].argmax(-1)[:, None]
-    return out
+
+
+def plain_flash():
+    """The plain flash version (f32 math) stands in for the kernel."""
+    from repro_torch.kernels import ref
+
+    return flash_stand_in(lambda _: ref.flash_attention_ref)
+
+
+def jax_route_flash():
+    """The JAX model's own attention at these lengths stands in for the
+    kernel: ``layers._dense_attention``, which rounds the softmax weights to
+    V's dtype as JAX's does (the plain flash version keeps them in f32)."""
+    from repro_torch.models import layers as L
+
+    def dense(q, k, v, *, causal, window, softcap, q_offset=0):
+        return L._dense_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                  q_offset=q_offset)
+
+    return flash_stand_in(lambda _: dense)
+
+
+def checked_flash(torch, calls: list):
+    """The kernel with each launch held to the plain version on the same
+    inputs (3e-2 elementwise): appends (max abs error, ok) to ``calls``."""
+    from repro_torch.kernels import ref
+
+    def make(kernel_fn):
+        def checked(q, k, v, **kw):
+            got = kernel_fn(q, k, v, **kw)
+            want = ref.flash_attention_ref(q, k, v, **kw).float()
+            calls.append(((got.float() - want).abs().max().item(),
+                          bool(torch.allclose(got.float(), want, atol=BF16_TOL, rtol=BF16_TOL))))
+            return got
+        return checked
+
+    return flash_stand_in(make)
+
+
+def greedy_tokens(torch, T, params, cfg, toks, n: int, *, plain: bool, max_seq: int, **kw):
+    """Greedy tokens (B lists of ``n``) of prefill + decode from ``toks``
+    (B, S), with the plain flash version in the kernel's place during
+    prefill when ``plain`` (dense decode has no kernel); ``kw`` goes to
+    prefill (``enc_frames``)."""
+    with torch.no_grad():
+        with plain_flash() if plain else contextlib.nullcontext():
+            last, cache = T.prefill(params, toks, cfg, max_seq=max_seq, **kw)
+        out = []
+        t = last[:, -1, :].argmax(-1)[:, None]
+        for _ in range(n):
+            out.append(t)
+            lg, cache = T.decode_step(params, t, cache, cfg)
+            t = lg[:, -1, :].argmax(-1)[:, None]
+    return torch.cat(out, dim=1).tolist()
+
+
+def dense_greedy(torch, T, params, cfg, prompt, n):
+    """Greedy tokens of dense prefill + decode of one prompt with plain
+    attention."""
+    return greedy_tokens(torch, T, params, cfg, torch.tensor([prompt], device="cuda"), n,
+                         plain=True, max_seq=max(128, len(prompt) + n))[0]
 
 
 def attn_layers(cfg) -> int:
@@ -1021,24 +1099,29 @@ class TimedStep:
         return out
 
 
+def profiled_device_ms(torch, run, calls: int) -> dict:
+    """Device time per call of ``run`` by kernel name: ``calls`` calls under
+    torch.profiler, ended by a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / calls
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def profile_steps(torch, eng, cfg, rng, median_step_ms: float, card: str) -> dict:
     """torch.profiler over 5 decode steps of 4 fresh requests (admitted and
     prefilled before the window): device time per step by kernel, and the
     device's busy share of an unprofiled step (the main run's median)."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(4):
         eng.submit([int(x) for x in rng.integers(1, cfg.vocab, 16)], max_new=8)
     eng.step()                                   # admission + prefill, outside the window
     steps = 5
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
+    dev_ms = profiled_device_ms(torch, eng.step, steps)
     eng.run(max_steps=100)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / steps for e in kernels}
     busy = sum(dev_ms.values())
     groups = {"gemm": 0.0, "paged_attention": 0.0, "other": 0.0}
     for name, ms in dev_ms.items():
@@ -1089,8 +1172,8 @@ def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str 
     cfg = full = get_config(arch)
     if layers:
         cfg = dataclasses.replace(full, n_layers=layers)
-        print(f"{tag} {arch}: depth cut to {layers} of {full.n_layers} layers (one block at "
-              f"the published width): all {full.n_layers} need "
+        print(f"{tag} {arch}: depth cut to {layers} of {full.n_layers} layers at the published "
+              f"width: all {full.n_layers} need "
               f"{full.param_count() * 2 / 1e9:.1f} GB of bf16 weights, beyond one 80 GB card",
               flush=True)
     t0 = time.perf_counter()
@@ -1208,6 +1291,260 @@ def phase_families(torch, seed: int, kernels: dict, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the encoder-decoder and vision families
+# ---------------------------------------------------------------------------
+
+def rel_l2(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def whisper_inputs(torch, cfg, seed: int):
+    """4 clips of random encoder frames (1,500 each, f32: the encoder casts
+    them to the config dtype) and a random 4-token decoder prefix, drawn on
+    the card from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    frames = torch.randn((WHISPER_CLIPS, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (WHISPER_CLIPS, WHISPER_PROMPT), generator=gen,
+                           device="cuda")
+    return frames, prompt
+
+
+def encdec_step_bytes(cfg, params, lengths: list[int]) -> dict:
+    """Bytes a whisper decode step must move, each once: the decoder's
+    weights (of an untied embedding only the B rows gathered; not the
+    encoder's, nor the cross K/V projections, spent in prefill), the self
+    K/V of ``lengths + 1`` keys read and one key written per layer, every
+    layer's cross K/V (``encoder_seq`` keys a row) and the f32 logits."""
+    b = len(lengths)
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    spent = {id(params["blocks"][0]["cross"][w]) for w in ("wk", "wv")}
+    decoder = {k: v for k, v in params.items() if k != "encoder"}
+    weights = sum(x.numel() * x.element_size() for x in _leaves(decoder) if id(x) not in spent)
+    if not cfg.tie_embeddings:
+        weights -= (params["embed"].shape[0] - b) * cfg.d_model * elem
+    key = cfg.n_kv_heads * cfg.head_dim * 2 * elem                   # K and V of one key
+    return {"weights": weights, "self_kv": cfg.n_layers * key * (sum(n + 1 for n in lengths) + b),
+            "cross_kv": cfg.n_layers * key * b * cfg.encoder_seq, "logits": b * cfg.vocab * 4}
+
+
+def phase_whisper(torch, seed: int, kernels: dict, card: str) -> dict:
+    """whisper-tiny at its published size in bf16 through the model API
+    (``prefill(enc_frames=)``, then ``decode_step``; no engine serves an
+    encoder-decoder model): 4 clips, a 4-token prefix, 64 greedy tokens.
+    The first decode step's logits are held to the same step after a
+    plain-attention prefill, on the same token. The encoder's time, the
+    time to first token, the median decode step beside its bound by bytes,
+    the flash launches by design, and the device's busy share of a step."""
+    from repro_torch.models import transformer as T
+
+    cfg, params = load_model(torch, "whisper-tiny", seed, tag="[encdec]")
+    frames, prompt = whisper_inputs(torch, cfg, seed)
+    max_seq = WHISPER_PROMPT + WHISPER_NEW + 8          # and the profiler's 5 steps
+    n_flash = cfg.encoder_layers + 2 * cfg.n_layers      # encoder, then self and cross
+    with torch.no_grad():
+        with plain_flash():
+            plain_last, cache = T.prefill(params, prompt, cfg, max_seq, enc_frames=frames)
+        tok = plain_last[:, -1].argmax(-1)[:, None]
+        plain_step = T.decode_step(params, tok, cache, cfg)[0].float()
+        last, cache = T.prefill(params, prompt, cfg, max_seq, enc_frames=frames)
+        step = T.decode_step(params, tok, cache, cfg)[0].float()
+        prefill_rel, step_rel = rel_l2(last, plain_last), rel_l2(step, plain_step)
+        argmax_rows = int((step.argmax(-1) == plain_step.argmax(-1)).sum())
+        del cache, plain_last, plain_step
+        free_memory(torch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        T._encoder_forward(params, frames, cfg)
+        torch.cuda.synchronize()
+        encoder_ms = (time.perf_counter() - t0) * 1e3
+
+        # the main path: prefill, then greedy decode steps, each to a synchronize
+        zero_launches(kernels)
+        t0 = time.perf_counter()
+        last, cache = T.prefill(params, prompt, cfg, max_seq, enc_frames=frames)
+        t = last[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        out, step_ms = [t], []
+        for _ in range(WHISPER_NEW - 1):
+            t0 = time.perf_counter()
+            lg, cache = T.decode_step(params, t, cache, cfg)
+            t = lg[:, -1].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(t)
+        launches, designs = read_launches(kernels), read_designs(kernels)
+        finite = bool(torch.isfinite(lg).all())
+        tokens = torch.cat(out, dim=1)
+        state = {"t": t, "cache": cache}
+
+        def one_step():
+            lg, state["cache"] = T.decode_step(params, state["t"], state["cache"], cfg)
+            state["t"] = lg[:, -1].argmax(-1)[:, None]
+
+        dev_ms = profiled_device_ms(torch, one_step, 5)
+    median = statistics.median(step_ms)
+    mid = WHISPER_PROMPT + WHISPER_NEW // 2
+    moved = encdec_step_bytes(cfg, params, [mid] * WHISPER_CLIPS)
+    bw = hbm_bytes_per_s(card)
+    bound_ms = sum(moved.values()) / bw * 1e3
+    busy = sum(dev_ms.values())
+    gemm = sum(ms for k, ms in dev_ms.items() if any(g in k for g in ("gemm", "nvjet", "cutlass")))
+    res = {"clips": WHISPER_CLIPS, "prompt_tokens": WHISPER_PROMPT, "tokens": tokens.numel(),
+           "encoder_ms": encoder_ms, "prefill_ms": prefill_ms, "decode_steps": len(step_ms),
+           "median_step_ms": median, "step_bound_ms": bound_ms, "step_bytes": moved,
+           "tokens_per_s": tokens.numel() / (prefill_ms + sum(step_ms)) * 1e3,
+           "device_ms_per_step": busy, "gemm_ms_per_step": gemm,
+           "busy_share_of_median_step": busy / median if busy else None,
+           "first_step_logits_rel_l2": step_rel, "prefill_logits_rel_l2": prefill_rel,
+           "first_step_argmax_equal_rows": argmax_rows, "launches": launches,
+           "launches_by_design": designs, "card": card}
+    print(f"[encdec] whisper-tiny bf16, {WHISPER_CLIPS} clips x {cfg.encoder_seq} frames, "
+          f"{WHISPER_PROMPT}-token prefix: first decode step's logits after a kernel prefill vs "
+          f"a plain-attention one, same token: relative L2 {step_rel:.3e} (tol {BF16_TOL:g}), "
+          f"argmax equal in {argmax_rows}/{WHISPER_CLIPS} rows; prefill logits relative L2 "
+          f"{prefill_rel:.3e}", flush=True)
+    print(f"[encdec] encoder {encoder_ms:.2f} ms, prefill (time to first token) {prefill_ms:.2f} "
+          f"ms, {len(step_ms)} decode steps median {median:.3f} ms, step bound {bound_ms * 1e3:.2f} "
+          f"us by bytes ({', '.join(f'{k} {v / 1e6:.2f} MB' for k, v in moved.items())} at "
+          f"{bw / 1e12:.2f} TB/s); {res['tokens_per_s']:.1f} tokens/s; device busy "
+          + (f"{busy:.3f} ms a step (GEMM {gemm:.3f}) = "
+             f"{100 * res['busy_share_of_median_step']:.1f} % of the median step"
+             if busy else "not measured (the profiler recorded no device time)")
+          + f"; launches {launches} {designs} on {card}", flush=True)
+    check(step_rel <= BF16_TOL, "encdec: whisper's first-step logits with the kernel differ "
+          "from those after a plain-attention prefill")
+    check(launches["flash_attention"] == n_flash and designs["flash_attention"] ==
+          {"simt": 0, "wgmma": n_flash}, f"encdec: whisper's prefill launched flash "
+          f"{designs['flash_attention']}, not {n_flash} wgmma")
+    check(launches["paged_attention"] == 0, "encdec: whisper ran the paged kernel")
+    check(finite and tokens.shape == (WHISPER_CLIPS, WHISPER_NEW)
+          and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()),
+          "encdec: whisper's logits are not finite or its tokens out of range")
+    del params, cache, state
+    free_memory(torch)
+    return res
+
+
+def phase_whisper_exact(torch, seed: int, kernels: dict) -> dict:
+    """whisper-tiny at its published size in fp32 (``simt`` flash): the
+    kernel route's 64 greedy tokens of each clip equal the plain route's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config("whisper-tiny"), dtype="float32")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    frames, prompt = whisper_inputs(torch, cfg, seed)
+    kw = dict(max_seq=WHISPER_PROMPT + WHISPER_NEW, enc_frames=frames)
+    n_flash = cfg.encoder_layers + 2 * cfg.n_layers
+    zero_launches(kernels)
+    got = greedy_tokens(torch, T, params, cfg, prompt, WHISPER_NEW, plain=False, **kw)
+    launches, designs = read_launches(kernels), read_designs(kernels)
+    want = greedy_tokens(torch, T, params, cfg, prompt, WHISPER_NEW, plain=True, **kw)
+    same = sum(g == w for g, w in zip(got, want))
+    print(f"[exact] whisper-tiny fp32, {WHISPER_CLIPS} clips, {WHISPER_NEW} greedy tokens: kernel "
+          f"route == plain route in {same}/{WHISPER_CLIPS} clips; launches {launches} {designs}",
+          flush=True)
+    check(same == WHISPER_CLIPS, "exact whisper-tiny: the kernel route's tokens differ from the "
+          f"plain route's: {got} vs {want}")
+    check(designs["flash_attention"] == {"simt": n_flash, "wgmma": 0},
+          f"exact whisper-tiny: flash launches {designs['flash_attention']}, not {n_flash} simt")
+    del params
+    free_memory(torch)
+    return launches
+
+
+def phase_vision(torch, seed: int, kernels: dict, card: str) -> dict:
+    """qwen2-vl-72b at its published width, 24 of 80 layers, bf16: one
+    prefill of 1,024 random patch embeddings and 64 text tokens, then the
+    serve phase on text prompts under the default M-RoPE positions.
+
+    The prefill is checked twice. Each flash launch is held to the plain
+    version on the same inputs (3e-2 elementwise). The last logits are held
+    to a plain-attention prefill (f32 softmax weights) within 3e-2 relative
+    L2, or, where bf16 alone parts further at this depth, within the
+    distance of the JAX model's own attention route (``jax_route_flash``:
+    weights rounded to bf16) from that same plain prefill, measured in this
+    run: the kernel may not be further from plain attention than the
+    reference's own bf16 attention is. Then the time to first token and the
+    flash launches by design of an unchecked prefill."""
+    from repro_torch.models import transformer as T
+
+    cfg, params = load_model(torch, "qwen2-vl-72b", seed, VISION_LAYERS, tag="[vision]")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 10)
+    nv = cfg.vis_tokens
+    vis = torch.randn((1, nv, cfg.d_model), generator=gen, device="cuda")
+    toks = torch.cat([torch.zeros((1, nv), dtype=torch.long, device="cuda"),   # replaced by vis
+                      torch.randint(1, cfg.vocab, (1, VISION_TEXT), generator=gen, device="cuda")],
+                     dim=1)
+    s = toks.shape[1]
+    calls = []
+    with torch.no_grad():
+        with plain_flash():
+            plain, _ = T.prefill(params, toks, cfg, s + 1, vis_embeds=vis)
+        with jax_route_flash():
+            jax_route, _ = T.prefill(params, toks, cfg, s + 1, vis_embeds=vis)
+        with checked_flash(torch, calls):                  # also the warm-up
+            T.prefill(params, toks, cfg, s + 1, vis_embeds=vis)
+        free_memory(torch)
+        zero_launches(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = T.prefill(params, toks, cfg, s + 1, vis_embeds=vis)
+        torch.cuda.synchronize()
+        ttft = (time.perf_counter() - t0) * 1e3
+        launches, designs = read_launches(kernels), read_designs(kernels)
+    err, floor = rel_l2(last, plain), rel_l2(jax_route, plain)
+    limit = max(BF16_TOL, floor)
+    prefill = {"patches": nv, "text_tokens": VISION_TEXT, "ttft_ms": ttft,
+               "logits_rel_l2": err, "jax_route_rel_l2": floor, "logits_limit": limit,
+               "argmax_equal": bool(last.argmax() == plain.argmax()),
+               "checked_calls": len(calls), "checked_calls_ok": all(ok for _, ok in calls),
+               "call_max_abs_err": max(e for e, _ in calls),
+               "launches": launches, "launches_by_design": designs, "card": card}
+    print(f"[vision] qwen2-vl-72b bf16 {cfg.n_layers} layers, prefill of {nv} patch embeddings + "
+          f"{VISION_TEXT} text tokens (S {s}): {len(calls)} flash launches vs plain version on the "
+          f"same inputs max_abs_err {prefill['call_max_abs_err']:.3e} (tol {BF16_TOL:g}) "
+          f"{'ok' if prefill['checked_calls_ok'] else 'FAIL'}; last logits vs a plain-attention "
+          f"prefill relative L2 {err:.3e} (the JAX route's bf16 attention vs the same: "
+          f"{floor:.3e}; limit {limit:.3e}), argmax equal {prefill['argmax_equal']}; time to "
+          f"first token {ttft:.1f} ms; launches {launches} {designs} on {card}", flush=True)
+    check(prefill["checked_calls_ok"] and len(calls) == cfg.n_layers,
+          "vision: a flash launch of the prefill differs from the plain version")
+    check(err <= limit, "vision: prefill logits with the kernel differ from plain attention's "
+          "by more than the JAX route's own bf16 attention does")
+    check(bool(torch.isfinite(last).all()), "vision: prefill logits are not finite")
+    check(launches["flash_attention"] == cfg.n_layers and designs["flash_attention"] ==
+          {"simt": 0, "wgmma": cfg.n_layers},
+          f"vision: the prefill launched flash {designs['flash_attention']}, not "
+          f"{cfg.n_layers} wgmma")
+    del plain, jax_route, last
+    free_memory(torch)
+    serve = phase_serve(torch, cfg, params, seed, kernels, card, tag="[vision] qwen2-vl-72b")
+    del params
+    free_memory(torch)
+    return {"vision_prefill": prefill, "vision_serve": serve}
+
+
+def phase_encdec_vision(torch, seed: int, kernels: dict, card: str) -> dict:
+    """Phase 9, one model at a time: whisper-tiny in bf16 and its fp32
+    exact check, qwen2-vl-72b's vision prefill and serving, and its fp32
+    exact check under pool pressure (``phase_exact``)."""
+    res = {"whisper": phase_whisper(torch, seed, kernels, card),
+           "whisper_exact_launches": phase_whisper_exact(torch, seed, kernels)}
+    res.update(phase_vision(torch, seed, kernels, card))
+    res["vision_exact_launches"] = phase_exact(torch, seed, kernels, "qwen2-vl-72b")
+    res["launches"] = {"whisper-tiny": res["whisper"]["launches"],
+                       "whisper-tiny exact fp32": res["whisper_exact_launches"],
+                       "qwen2-vl-72b vision prefill": res["vision_prefill"]["launches"],
+                       "qwen2-vl-72b serve": res["vision_serve"]["launches"],
+                       "qwen2-vl-72b exact fp32": res["vision_exact_launches"]}
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 6: prefill at full width and depth
 # ---------------------------------------------------------------------------
 
@@ -1227,7 +1564,6 @@ class PrefillProbe:
         torch = self.torch
         from torch.profiler import record_function
         from repro_torch.kernels import flash_attention as flash_mod
-        from repro_torch.kernels import ops, ref
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if self.first is not None:
@@ -1235,21 +1571,10 @@ class PrefillProbe:
                 out = self.prefill(*args, **kw)
                 torch.cuda.synchronize()
         else:
-            kernel_fn, calls = ops.flash_attention, []
+            calls = []
             designs = dict(flash_mod.flash_attention.launches_by_design)
-
-            def checked(q, k, v, **kw2):
-                got = kernel_fn(q, k, v, **kw2)
-                want = ref.flash_attention_ref(q, k, v, **kw2).float()
-                calls.append(((got.float() - want).abs().max().item(), bool(torch.allclose(
-                    got.float(), want, atol=BF16_TOL, rtol=BF16_TOL))))
-                return got
-
-            try:
-                ops.flash_attention = checked
+            with checked_flash(torch, calls):
                 out = self.prefill(*args, **kw)
-            finally:
-                ops.flash_attention = kernel_fn
             self.first = {"calls": len(calls), "calls_ok": all(ok for _, ok in calls),
                           "call_max_abs_err": max(e for e, _ in calls),
                           "launches_by_design": {
@@ -1383,7 +1708,6 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     one such request at a time, so each waits for the one before to finish.
     The first prefill is checked, the second timed (time to first token),
     the third profiled."""
-    from repro_torch.kernels import ops, ref
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
 
@@ -1394,14 +1718,9 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     rng = np.random.default_rng(seed + 6)
     prompts = [[int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)] for _ in range(3)]
     # the reference: the first prompt's prefill with plain attention
-    kernel_fn = ops.flash_attention
-    with torch.no_grad():
-        try:
-            ops.flash_attention = ref.flash_attention_ref
-            plain, _ = T.prefill(params, torch.tensor([prompts[0]], device="cuda"), cfg,
-                                 max_seq=n_pages * page)
-        finally:
-            ops.flash_attention = kernel_fn
+    with torch.no_grad(), plain_flash():
+        plain, _ = T.prefill(params, torch.tensor([prompts[0]], device="cuda"), cfg,
+                             max_seq=n_pages * page)
     plain = plain.float()
     free_memory(torch)
 
@@ -1728,13 +2047,16 @@ def main() -> int:
         free_memory(torch)
         sa = phase_sa_cache(torch, args.seed, kernels, card)
         families = phase_families(torch, args.seed, kernels, card)
+        # 9. encoder-decoder and vision
+        encdec = phase_encdec_vision(torch, args.seed, kernels, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
 
     def family_launches(name: str) -> dict:
         return {"exact_families_launches": {a: n[name] for a, n in exact_families.items()},
-                "families_phase_launches": {a: r["launches"][name] for a, r in families.items()}}
+                "families_phase_launches": {a: r["launches"][name] for a, r in families.items()},
+                "encdec_vision_launches": {run: n[name] for run, n in encdec["launches"].items()}}
 
     common = {"route": "cuda", "library_ms": None}
     serve_t = paged["timed"]["serve"]
@@ -1790,7 +2112,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
-         "prefill": prefill, "families": families,
+         "prefill": prefill, "families": families, "encdec_vision": encdec,
          "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families},
         indent=1, default=str))
     print(json.dumps(line))

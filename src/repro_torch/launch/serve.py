@@ -8,11 +8,15 @@ published one. Weights are random, drawn on the device from ``--seed``.
 
 ``--arch`` takes the dense-attention families (tinyllama-1.1b, qwen3-8b,
 gemma2-27b, h2o-danube-3-4b), the MoE families (olmoe-1b-7b,
-granite-moe-1b-a400m) and the Mamba2 and hybrid ones (mamba2-780m,
-jamba-v0.1-52b). In bf16 at ``--preset full``: qwen3-8b 16.4 GB of weights,
-olmoe-1b-7b 13.8 GB, mamba2-780m 1.6 GB, all on one H100; jamba-v0.1-52b's
-103 GB do not fit one 80 GB card (``chip_smoke.py`` serves one full-width
-block of it).
+granite-moe-1b-a400m), the Mamba2 and hybrid ones (mamba2-780m,
+jamba-v0.1-52b) and qwen2-vl-72b, served with text prompts under its
+default M-RoPE positions (the engine takes no patch embeddings, as the JAX
+engine). whisper-tiny is an encoder-decoder model, which the paged engine
+does not serve (nor does the JAX one): it raises ``NotImplementedError``.
+In bf16 at ``--preset full``: qwen3-8b 16.4 GB of weights, olmoe-1b-7b 13.8
+GB, mamba2-780m 1.6 GB, all on one H100; jamba-v0.1-52b's 103 GB and
+qwen2-vl-72b's 145 GB do not fit one 80 GB card (``chip_smoke.py`` serves a
+full-width cut of each).
 """
 from __future__ import annotations
 

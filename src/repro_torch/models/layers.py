@@ -1,5 +1,6 @@
-"""Neural-net building blocks in PyTorch: norms, RoPE/M-RoPE, attention (GQA /
-sliding window / softcap / qk-norm), MLPs. Plain functions over dicts of
+"""Neural-net building blocks in PyTorch: norms, RoPE/M-RoPE, sinusoidal
+positions, attention (GQA / sliding window / softcap / qk-norm /
+cross-attention), MLPs. Plain functions over dicts of
 tensors, mirroring ``repro/models/layers.py`` name for name.
 
 Conventions:
@@ -71,6 +72,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(positions: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings in f32; positions (B, S) -> (B, S, D)."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0, device=positions.device))
+    freqs = torch.exp(-log_base * torch.arange(half, dtype=torch.float32, device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,33 +187,40 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
 
 def multihead_attention(x, params, cfg: ModelConfig, *, positions,
                         window: int = 0, causal: bool = True,
-                        q_offset: int = 0,
+                        kv_override=None, q_offset: int = 0,
                         dense_threshold: int | None = None) -> torch.Tensor:
-    """Full self-attention over x (B, S, D).
+    """Full self-attention over x (B, S, D), or cross-attention with
+    ``kv_override=(k, v)``: Q is projected from x, K/V (B, Skv, KV, hd) come
+    from the override and get no k-norm and no rope.
 
     On the card, attention at every length is the Hopper flash kernel
-    (``ops.flash_attention``), the counterpart of both ``_dense_attention``
-    and ``_chunked_attention`` (f32 math throughout, as the Pallas kernel).
-    On the CPU the JAX rule holds: dense up to ``dense_threshold``, chunked
-    past it."""
+    (``ops.flash_attention``, Sq and Skv as they come), the counterpart of
+    both ``_dense_attention`` and ``_chunked_attention`` (f32 math
+    throughout, as the Pallas kernel). On the CPU the JAX rule holds: dense
+    while ``max(Sq, Skv)`` is at most ``dense_threshold``, chunked past it."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    if kv_override is None:
+        k = (x @ params["wk"]).reshape(b, s, kvh, hd)
+        v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta:
+        if kv_override is None:
+            k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
+    if cfg.rope_theta and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    skv = k.shape[1]
     if dense_threshold is None:
         dense_threshold = cfg.attn_dense_threshold
     if q.is_cuda:
         out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                   causal=causal, window=window, softcap=cfg.attn_softcap,
                                   q_offset=q_offset)
-    elif s > dense_threshold:
+    elif max(s, skv) > dense_threshold:
         out = _chunked_attention(q, k, v, causal=causal, window=window,
                                  softcap=cfg.attn_softcap)
     else:
@@ -212,7 +230,8 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
 
 
 def project_kv(x, params, cfg: ModelConfig, positions):
-    """K/V projections only (the prefill cache write)."""
+    """K/V projections only (the prefill cache write, the cross-attention
+    memory)."""
     b, s, _ = x.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     k = (x @ params["wk"]).reshape(b, s, kvh, hd)
@@ -251,6 +270,21 @@ def decode_attention(q, k_ctx, v_ctx, *, lengths, softcap: float = 0.0,
     w = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", w.to(v_ctx.dtype).float(), v_ctx.float())
     return out.reshape(b, 1, h * hd).to(q.dtype)
+
+
+def decode_cross_attention(x, params, cfg: ModelConfig, kv) -> torch.Tensor:
+    """Decode-time cross-attention (whisper): x (B, 1, D) attends over the
+    whole precomputed encoder K/V ({"k", "v"}: (B, enc_seq, KV, hd)), every
+    key valid. Through ``decode_attention``, as in JAX, which has no kernel
+    on this path (a flash launch at Sq 1 would leave all but one row of its
+    query tile idle)."""
+    b = x.shape[0]
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, 1, h, hd)
+    skv = kv["k"].shape[1]
+    out = decode_attention(q, kv["k"], kv["v"],
+                           lengths=torch.full((b,), skv, dtype=torch.int32, device=x.device))
+    return out @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

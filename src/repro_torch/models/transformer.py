@@ -1,5 +1,6 @@
-"""Model assembly for the dense-attention, MoE, Mamba2 and hybrid families
-(tinyllama, qwen3, gemma2, h2o-danube, olmoe, granite-moe, mamba2, jamba),
+"""Model assembly for every family of the repo: dense attention (tinyllama,
+qwen3, gemma2, h2o-danube), MoE (olmoe, granite-moe), Mamba2 and hybrid
+(mamba2, jamba), encoder-decoder (whisper) and vision-language (qwen2-vl),
 mirroring ``repro/models/transformer.py``.
 
 * The layer stack is ``n_blocks`` repetitions of the config's ``block``
@@ -9,6 +10,13 @@ mirroring ``repro/models/transformer.py``.
   loops over blocks in Python.
 * Train/prefill forward, single-token decode with KV caches (ring buffers
   for sliding-window layers) and SSM-state caches.
+* Whisper: an encoder over precomputed frames (the conv front end is a
+  stub, as in JAX), sinusoidal absolute positions, and cross-attention in
+  every decoder layer; the decode cache holds each layer's cross K/V.
+* qwen2-vl: precomputed patch embeddings replace the first ``nv`` token
+  embeddings (the vision tower is a stub, as in JAX), and positions are
+  ``(B, 3, S)`` for M-RoPE, a plain ``arange`` in each of the three
+  streams unless the caller passes others.
 * Decode caches are updated in place (JAX returns new arrays): the cache
   passed to ``decode_step`` is the one returned, with its lengths advanced.
 * Prefill of a mamba layer rebuilds the conv tail from the last
@@ -16,12 +24,12 @@ mirroring ``repro/models/transformer.py``.
   zero-padded at the front, as ``ssm._causal_conv`` pads in forward; the JAX
   reference builds a short tail there and its first decode step fails.
 
-The whisper encoder and the qwen2-vl vision inputs are not in the port yet
-and raise ``NotImplementedError``.
+The paged serving engine takes decoder-only models: ``check_servable``
+refuses an encoder-decoder one.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -35,25 +43,34 @@ from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step
 KPOS_INVALID = (2 ** 31 - 1) // 2   # empty ring slot: always masked
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the families whose port is a later slice (see ROADMAP.md)."""
-    later = "is not ported yet: it comes with the 'other model families' slice"
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise for a model the paged serving engine cannot serve: an
+    encoder-decoder one, whose decoder layers cross-attend to the encoder's
+    output. The paged decode step has no cross-attention, and neither has
+    the JAX engine's (its prefill passes no encoder frames), so such a model
+    runs through ``prefill(enc_frames=)`` and ``decode_step`` instead."""
     if cfg.encoder_layers:
-        raise NotImplementedError(f"{cfg.name}: the whisper encoder/cross-attention {later}")
-    if cfg.vis_tokens or cfg.mrope_sections:
-        raise NotImplementedError(f"{cfg.name}: the qwen2-vl vision/M-RoPE path {later}")
+        raise NotImplementedError(
+            f"{cfg.name}: the paged serving engine takes decoder-only models; this "
+            "encoder-decoder model needs cross-attention, which the paged decode step does "
+            "not have (the JAX engine cannot serve it either). Run it through "
+            "transformer.prefill(enc_frames=) and transformer.decode_step.")
 
 
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def _init_sublayer(generator, spec: LayerSpec, cfg: ModelConfig, device) -> dict:
+def _init_sublayer(generator, spec: LayerSpec, cfg: ModelConfig, device,
+                   cross: bool = False) -> dict:
     p: dict = {"norm": L.init_rmsnorm(cfg.d_model, device)["scale"],
                "attn": (L.init_attention(generator, cfg, device) if spec.kind == "attn"
                         else init_mamba(generator, cfg, device))}
     if cfg.post_norms:
         p["post_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
+    if cross and spec.kind == "attn":
+        p["cross_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
+        p["cross"] = L.init_attention(generator, cfg, device)
     if spec.ffn in ("mlp", "moe"):
         p["ffn_norm"] = L.init_rmsnorm(cfg.d_model, device)["scale"]
         if spec.ffn == "mlp":
@@ -71,6 +88,27 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _stacked_draws(draw, n: int):
+    """``n`` calls of ``draw`` (a tree of tensors each), stacked on a new
+    leading dim. Each draw is copied into the stacked tensors as it comes
+    and then dropped, so the peak is the result and one draw: at full width
+    a list of all draws and its stack would need twice the weights."""
+    out = None
+    for i in range(n):
+        tree = draw()
+        if out is None:
+            out = _tree_map(lambda a: a.new_empty((n, *a.shape)), tree)
+        _tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        del tree
+    return out
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
 def layer_params(tree, l: int):
     """Block ``l``'s slice of a stacked parameter (or cache) tree."""
     if isinstance(tree, dict):
@@ -82,20 +120,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None) -> di
     """Random weights on ``device`` with the JAX tree layout, dtypes and
     scales (N(0,1) * d**-0.5 matrices in the config dtype, zero f32 norm
     scales). The numbers differ from ``jax.random``'s: parity with the JAX
-    init is statistical only."""
-    check_supported(cfg)
+    init is statistical only. An encoder-decoder model also gets the cross
+    parameters of each decoder attention layer and ``params["encoder"]``
+    (its own attention + MLP blocks, stacked over ``encoder_layers``)."""
     dt = getattr(torch, cfg.dtype)
     params: dict = {
         "embed": L.init_normal((cfg.vocab, cfg.d_model), generator, device,
                                cfg.d_model ** -0.5, dt),
         "final_norm": L.init_rmsnorm(cfg.d_model, device)["scale"],
     }
+    cross = cfg.encoder_layers > 0
     params["blocks"] = tuple(
-        _stack([_init_sublayer(generator, spec, cfg, device) for _ in range(cfg.n_blocks)])
+        _stacked_draws(lambda: _init_sublayer(generator, spec, cfg, device, cross),
+                       cfg.n_blocks)
         for spec in cfg.block)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_normal((cfg.d_model, cfg.vocab), generator, device,
                                           cfg.d_model ** -0.5, dt)
+    if cfg.encoder_layers:
+        enc_spec = LayerSpec(kind="attn", ffn="mlp")
+        params["encoder"] = {
+            "blocks": _stacked_draws(lambda: _init_sublayer(generator, enc_spec, cfg, device),
+                                     cfg.encoder_layers),
+            "final_norm": L.init_rmsnorm(cfg.d_model, device)["scale"],
+        }
     return params
 
 
@@ -131,7 +179,6 @@ class Transformer(_Tree):
     take as ``params``."""
 
     def __init__(self, cfg: ModelConfig, params: dict):
-        check_supported(cfg)
         super().__init__(params)
         self.cfg = cfg
 
@@ -139,19 +186,39 @@ class Transformer(_Tree):
     def random(cls, cfg: ModelConfig, generator: torch.Generator, device=None):
         return cls(cfg, init_params(cfg, generator, device))
 
-    def forward(self, tokens):
-        return forward_logits(self.tree(), tokens, self.cfg)[0]
+    def forward(self, tokens, *, enc_frames=None, vis_embeds=None):
+        return forward_logits(self.tree(), tokens, self.cfg, enc_frames=enc_frames,
+                              vis_embeds=vis_embeds)[0]
 
 
 # ---------------------------------------------------------------------------
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    x = params["embed"][tokens]          # (B, S, D)
+def token_embeddings(params, tokens, cfg: ModelConfig):
+    """The embedding rows of ``tokens`` (B, S) -> (B, S, D), scaled for gemma."""
+    x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
+
+
+def _add_abs_positions(x, positions, cfg: ModelConfig):
+    """Whisper's sinusoidal absolute positions (B, S), computed in f32, cast
+    to x's dtype and then added, in JAX's order; other models unchanged."""
+    if cfg.rope_theta == 0.0 and cfg.encoder_layers:
+        x = x + L.sinusoidal_positions(positions, cfg.d_model).to(x.dtype)
+    return x
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, vis_embeds=None):
+    """Token embeddings of a prompt at positions 0..S-1. ``vis_embeds`` (B,
+    nv, D), cast to the embedding dtype, replace the first ``nv`` of them."""
+    x = token_embeddings(params, tokens, cfg)
+    if vis_embeds is not None:
+        nv = vis_embeds.shape[1]
+        x = torch.cat([vis_embeds.to(x.dtype), x[:, nv:]], dim=1)
+    return _add_abs_positions(x, torch.arange(x.shape[1], device=x.device)[None, :], cfg)
 
 
 def head_weight(params, cfg: ModelConfig):
@@ -191,8 +258,9 @@ def _add_aux(aux: dict, losses) -> dict:
     return {k: aux[k] + losses[k] for k in aux}
 
 
-def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions):
-    """One sublayer (attn or mamba, then ffn) in train/prefill form.
+def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross_kv=None):
+    """One sublayer (attn or mamba, then whisper's cross-attention over
+    ``cross_kv`` = (k, v) where given, then ffn) in train/prefill form.
     Returns (x, aux losses or None)."""
     h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
     if spec.kind == "attn":
@@ -202,26 +270,59 @@ def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions):
         h = mamba_chunked(h, p["attn"], cfg)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-    return apply_ffn(x + h, p, spec, cfg)
+    x = x + h
+    if cross_kv is not None:
+        h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        h = L.multihead_attention(h, p["cross"], cfg, positions=None, kv_override=cross_kv,
+                                  causal=False)
+        x = x + h
+    return apply_ffn(x, p, spec, cfg)
 
 
-def _positions(b: int, s: int, device):
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+def _positions(b: int, s: int, cfg: ModelConfig, device):
+    """Default positions 0..S-1: (B, S), or (B, 3, S) under M-RoPE."""
+    pos = torch.arange(s, device=device)
+    if cfg.mrope_sections:
+        return pos[None, None, :].expand(b, 3, s)
+    return pos[None, :].expand(b, s)
 
 
-def forward(params, tokens, cfg: ModelConfig, *, positions=None):
-    """Trunk forward. Returns (final_hidden (B,S,D), aux losses dict)."""
-    check_supported(cfg)
+def _encoder_forward(params, frames, cfg: ModelConfig):
+    """Whisper encoder over precomputed conv frames (B, enc_seq, D):
+    non-causal self-attention + MLP blocks, no rope."""
+    if frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder model needs enc_frames "
+                         f"(B, {cfg.encoder_seq}, {cfg.d_model})")
+    pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames.to(getattr(torch, cfg.dtype))
+    x = x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    enc = params["encoder"]
+    for l in range(cfg.encoder_layers):
+        p = layer_params(enc["blocks"], l)
+        h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+        x = x + L.multihead_attention(h, p["attn"], cfg, positions=None, causal=False)
+        h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+        x = x + L.mlp(h, p["mlp"], cfg.act)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None,
+            vis_embeds=None):
+    """Trunk forward. Returns (final_hidden (B,S,D), aux losses dict).
+    ``enc_frames`` (B, enc_seq, D): whisper's encoder input, required for an
+    encoder-decoder model; ``vis_embeds`` (B, nv, D): qwen2-vl's patch
+    embeddings (``embed_tokens``)."""
     b, s = tokens.shape
     if positions is None:
-        positions = _positions(b, s, tokens.device)
-    x = embed_tokens(params, tokens, cfg)
+        positions = _positions(b, s, cfg, tokens.device)
+    x = embed_tokens(params, tokens, cfg, vis_embeds)
+    cross = encode_cross_kv(params, enc_frames, cfg) if cfg.encoder_layers else None
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = {"lb": zero, "z": zero}
     for l in range(cfg.n_blocks):
         for i, spec in enumerate(cfg.block):
             x, losses = _apply_sublayer(x, layer_params(params["blocks"][i], l), spec, cfg,
-                                        positions=positions)
+                                        positions=positions, cross_kv=_layer_kv(cross, l))
             aux = _add_aux(aux, losses)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -240,6 +341,7 @@ class DecodeCache(NamedTuple):
     lengths: torch.Tensor    # (B,) tokens already in cache
     layers: tuple            # per pattern position, stacked over blocks: {"k","v","kpos"}
                              # (attention) or {"conv_x","conv_bc","ssm"} (mamba)
+    cross: Any = None        # whisper: {"k","v"}: (n_layers, B, enc_seq, KV, hd)
 
 
 def _attn_cache_cap(spec: LayerSpec, max_seq: int) -> int:
@@ -254,7 +356,6 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> DecodeCache:
-    check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     nb = cfg.n_blocks
     layer_caches = []
@@ -270,8 +371,32 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -
             "kpos": torch.full((nb, batch, cap), KPOS_INVALID, dtype=torch.int32,
                                device=device),
         })
+    cross = None
+    if cfg.encoder_layers:
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        cross = {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
     return DecodeCache(lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
-                       layers=tuple(layer_caches))
+                       layers=tuple(layer_caches), cross=cross)
+
+
+def encode_cross_kv(params, enc_frames, cfg: ModelConfig) -> dict:
+    """Whisper: run the encoder once, project K/V for every decoder layer.
+
+    Returns {"k","v"}: (n_layers, B, enc_seq, KV, hd). Cross-attention
+    assumes a homogeneous decoder block (whisper: block = (attn,)), in
+    ``forward`` and ``prefill`` too, which take their cross K/V from here."""
+    if len(cfg.block) != 1 or cfg.block[0].kind != "attn":
+        raise NotImplementedError("cross-attn assumes homogeneous decoder block")
+    enc_out = _encoder_forward(params, enc_frames, cfg)
+    kv = [L.project_kv(enc_out, layer_params(params["blocks"][0]["cross"], l), cfg,
+                       positions=None) for l in range(cfg.n_blocks)]
+    return {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
+
+
+def _layer_kv(cross, l: int):
+    """Block ``l``'s (k, v) of ``encode_cross_kv``'s output, or None."""
+    return None if cross is None else (cross["k"][l], cross["v"][l])
 
 
 # ---------------------------------------------------------------------------
@@ -304,12 +429,16 @@ def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions):
 
 def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positions=None):
     """tokens: (B, 1) -> (logits (B,1,V), cache). The cache is updated in
-    place; the returned one shares its tensors, with lengths + 1."""
-    check_supported(cfg)
+    place; the returned one shares its tensors, with lengths + 1. Default
+    positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE; whisper
+    adds its absolute position there and cross-attends to ``cache.cross``."""
+    b = tokens.shape[0]
     lengths = cache.lengths
     if positions is None:
         positions = lengths[:, None]
-    x = embed_tokens(params, tokens, cfg)
+        if cfg.mrope_sections:
+            positions = lengths[:, None, None].expand(b, 3, 1)
+    x = _add_abs_positions(token_embeddings(params, tokens, cfg), lengths[:, None], cfg)
     for l in range(cfg.n_blocks):
         for i, spec in enumerate(cfg.block):
             p = layer_params(params["blocks"][i], l)
@@ -323,9 +452,16 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
                     layer_cache[k].copy_(v)
             if cfg.post_norms:
                 h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-            x, _ = apply_ffn(x + h, p, spec, cfg)
+            x = x + h
+            if cache.cross is not None:
+                h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+                h = L.decode_cross_attention(h, p["cross"], cfg,
+                                             {"k": cache.cross["k"][l], "v": cache.cross["v"][l]})
+                x = x + h
+            x, _ = apply_ffn(x, p, spec, cfg)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, x, cfg), DecodeCache(lengths=lengths + 1, layers=cache.layers)
+    return logits_fn(params, x, cfg), DecodeCache(lengths=lengths + 1, layers=cache.layers,
+                                                  cross=cache.cross)
 
 
 # ---------------------------------------------------------------------------
@@ -345,14 +481,20 @@ def _conv_tail(h, p, cfg: ModelConfig) -> dict:
             for name, w in (("conv_x", "in_x"), ("conv_bc", "in_bc"))}
 
 
-def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None):
-    """Process the prompt, build the decode cache. Returns (last_logits, cache)."""
-    check_supported(cfg)
+def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
+            enc_frames=None, vis_embeds=None):
+    """Process the prompt, build the decode cache. Returns (last_logits, cache).
+
+    For whisper the encoder runs once: ``encode_cross_kv``'s K/V feed the
+    prefill's cross-attention and become the cache's. JAX runs the encoder
+    twice, in its prefill and again inside its ``encode_cross_kv``; the
+    numbers are the same, the encoder work half."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
-        positions = _positions(b, s, dev)
-    x = embed_tokens(params, tokens, cfg)
+        positions = _positions(b, s, cfg, dev)
+    x = embed_tokens(params, tokens, cfg, vis_embeds)
+    cross = encode_cross_kv(params, enc_frames, cfg) if cfg.encoder_layers else None
     caches: list[list[dict]] = [[] for _ in cfg.block]
     for l in range(cfg.n_blocks):
         for i, spec in enumerate(cfg.block):
@@ -377,9 +519,10 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None):
             vc[:, sl] = v[:, -w:]
             kp[:, sl] = pos.to(torch.int32)[None, :]
             caches[i].append({"k": kc, "v": vc, "kpos": kp})
-            x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions)
+            x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions,
+                                   cross_kv=_layer_kv(cross, l))
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = logits_fn(params, x[:, -1:, :], cfg)
     cache = DecodeCache(lengths=torch.full((b,), s, dtype=torch.int32, device=dev),
-                        layers=tuple(_stack(c) for c in caches))
+                        layers=tuple(_stack(c) for c in caches), cross=cross)
     return logits, cache

@@ -81,7 +81,7 @@ class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int = 4,
                  page_size: int = 16, num_sets: int = 32, set_size: int = 4,
                  max_pages: int = 64, use_flusher: bool = True, device="cuda"):
-        T.check_supported(cfg)
+        T.check_servable(cfg)                   # before any engine state exists
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params.tree() if isinstance(params, T.Transformer) else params

@@ -44,7 +44,8 @@ def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: i
 
 def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
     """Returns ``step(params, pools, tokens, lengths, page_table, rows) ->
-    logits (B, 1, V)``.
+    logits (B, 1, V)``. An encoder-decoder model raises
+    (``transformer.check_servable``).
 
     tokens: (B, 1); lengths: (B,) int32 tokens already in the pool;
     page_table: (B, max_pages) int32 pool ids; rows: (n,) int64 indices of the
@@ -53,8 +54,9 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
     (JAX's ``where(active, new, old)``: a preempted or empty row's state does
     not move); every row attends, over ``lengths + 1`` keys (an inactive row
     reads the scratch page its table points at, and its output is ignored).
+    Positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE, as JAX.
     """
-    T.check_supported(cfg)
+    T.check_servable(cfg)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
     def attn_sublayer(x, p, k_pool, v_pool, rows, pids, offs, page_table, lengths1,
@@ -77,11 +79,13 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
 
     def step(params, pools, tokens, lengths, page_table, rows):
         positions = lengths[:, None]
+        if cfg.mrope_sections:
+            positions = lengths[:, None, None].expand(-1, 3, 1)
         lengths1 = lengths + 1
         cur = lengths[rows].long()
         pids = page_table[rows, cur // page_size].long()
         offs = cur % page_size
-        x = T.embed_tokens(params, tokens, cfg)
+        x = T.token_embeddings(params, tokens, cfg)
         for l in range(cfg.n_blocks):
             for i, spec in enumerate(cfg.block):
                 p = T.layer_params(params["blocks"][i], l)

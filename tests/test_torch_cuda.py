@@ -37,6 +37,7 @@ PAGED_CASES = [
     (2, 32, 8, 120, 16, 8, 32),       # h2o-danube decode (hd 120)
     (4, 16, 16, 128, 16, 8, 64),      # olmoe-1b-7b decode (group 1)
     (4, 16, 8, 64, 16, 8, 64),        # granite-moe-1b-a400m decode (group 2)
+    (4, 64, 8, 128, 16, 8, 64),       # qwen2-vl-72b decode (group 8 at hd 128)
 ]
 TOLS = {"float32": 2e-5, "bfloat16": 3e-2}
 # and relative L2 over the whole output (chip_smoke.py's, which says why)
@@ -167,6 +168,9 @@ FLASH_CASES = [
     (1, 8, 16, 2, 1, 16, True, 4, 0.0, 16),        # rows with no key give 0
     (1, 512, 512, 16, 16, 128, True, 0, 0.0, 0),   # olmoe-1b-7b prefill heads (group 1)
     (1, 512, 512, 16, 8, 64, True, 0, 0.0, 0),     # granite-moe-1b-a400m prefill heads
+    (4, 1500, 1500, 6, 6, 64, False, 0, 0.0, 0),   # whisper-tiny encoder (1,500 frames)
+    (4, 4, 1500, 6, 6, 64, False, 0, 0.0, 0),      # whisper-tiny cross-attention
+    (1, 1088, 1088, 64, 8, 128, True, 0, 0.0, 0),  # qwen2-vl-72b vision prefill (group 8)
 ]
 FLASH_TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -437,3 +441,37 @@ def test_preempted_mamba_state_waits_in_host_memory(card):
             lg, cache = T.decode_step(params, t, cache, cfg)
             t = lg[:, -1].argmax(-1)[:, None]
     assert req.state == "done" and req.out == want
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_encdec_and_vision_models_on_card_match_cpu(card, arch):
+    """Reduced whisper-tiny (its encoder and cross-attention through the
+    flash kernel, non-causal, Sq != Skv) and qwen2-vl-72b (M-RoPE, patch
+    embeddings) in fp32: prefill and two decode steps on the card equal the
+    CPU's (plain attention) within 2e-5, the cross K/V too."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 14)))
+    if cfg.encoder_layers:
+        kw = {"enc_frames": torch.from_numpy(
+            rng.normal(size=(2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))}
+    else:
+        kw = {"vis_embeds": torch.from_numpy(
+            rng.normal(size=(2, cfg.vis_tokens, cfg.d_model)).astype(np.float32))}
+    card_params = _to(params, card)
+    before = cuda_flash.flash_attention.launches
+    got, cache = T.prefill(card_params, toks[:, :12].to(card), cfg, max_seq=16, **_to(kw, card))
+    want, ccache = T.prefill(params, toks[:, :12], cfg, max_seq=16, **kw)
+    # the encoder's layers, then self- and cross-attention in each decoder layer
+    launches = cfg.encoder_layers + (2 if cfg.encoder_layers else 1) * cfg.n_layers
+    assert cuda_flash.flash_attention.launches == before + launches
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)
+    if cfg.encoder_layers:
+        for k in ("k", "v"):
+            torch.testing.assert_close(cache.cross[k].cpu(), ccache.cross[k], atol=2e-5,
+                                       rtol=2e-5)
+    for t in (12, 13):
+        got, cache = T.decode_step(card_params, toks[:, t:t + 1].to(card), cache, cfg)
+        want, ccache = T.decode_step(params, toks[:, t:t + 1], ccache, cfg)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=2e-5)

@@ -264,5 +264,24 @@ def test_transformer_module_holds_the_tree():
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
 def test_later_slice_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.init_params(reduced(get_config(arch)), torch.Generator().manual_seed(0))
+    """whisper-tiny and qwen2-vl-72b, once the families that raised, now
+    initialise with JAX's tree (whisper's ``encoder`` and ``cross`` leaves
+    included), shapes and dtypes, and converted weights give JAX's logits."""
+    jcfg = jax_reduced(jax_get_config(arch))
+    jleaves = dict(_leaves(jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0), jcfg))))
+    tleaves = dict(_leaves(T.init_params(reduced(get_config(arch)),
+                                         torch.Generator().manual_seed(0))))
+    assert tleaves.keys() == jleaves.keys()
+    for k, want in jleaves.items():
+        assert tuple(tleaves[k].shape) == want.shape, k
+        assert str(tleaves[k].dtype).removeprefix("torch.") == str(want.dtype), k
+    jcfg, jparams, cfg, tparams = _models(arch)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, cfg.vocab, size=(2, 10))
+    extra = ("enc_frames", (2, cfg.encoder_seq, cfg.d_model)) if cfg.encoder_layers else (
+        "vis_embeds", (2, cfg.vis_tokens, cfg.d_model))
+    x = rng.normal(size=extra[1]).astype(np.float32)
+    out, _ = T.forward_logits(tparams, torch.from_numpy(toks), cfg,
+                              **{extra[0]: torch.from_numpy(x)})
+    want, _ = JT.forward_logits(jparams, jnp.asarray(toks), jcfg, **{extra[0]: jnp.asarray(x)})
+    _close(out, want, 5e-3)
