@@ -91,9 +91,28 @@ last line:
               1,024 random patch embeddings and 64 text tokens held to a
               plain-attention prefill, then the serve phase on text prompts
               (M-RoPE positions); at 2 layers in fp32, phase 4's exact check;
- 10. the kernels line (JSON), the device line, and the result line.
+ 10. train    the training path (``launch/steps.make_train_step``: forward
+              with remat, chunked loss, AdamW; the flash kernel forward under
+              ``ops.FlashAttention``, whose backward is PyTorch ops): at full
+              width and 2 layers in fp32 (whisper-tiny at full size) for
+              tinyllama-1.1b, olmoe-1b-7b, mamba2-780m and whisper-tiny, one
+              step (batch 4 x 512, 2 microbatches) through the kernel and
+              through the plain version: losses within 1e-5 relative, every
+              gradient leaf within 1e-5 relative L2 and nonzero through the
+              kernel, flash launches = attention calls x 2 (forward and the
+              recompute) x microbatches, all simt; tinyllama in bf16: 1e-2,
+              2e-2, all wgmma; then tinyllama-1.1b at its published size, bf16
+              with an f32 master copy, 20 steps of batch 8 x 2,048 from
+              SyntheticLM through the Prefetcher, a checkpoint at step 9 and at
+              the end (save, wait and drain timed), the end's restored into
+              fresh weights bitwise equal to the trained state, steps 10-19
+              rerun from step 9's restore within 1e-3 relative; the median
+              step, tokens/s, the model-FLOP share, torch.profiler's busy share
+              and device ms by flash forward, attention backward, GEMMs and
+              optimizer, the peak memory;
+ 11. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each run of phases 4-9
+The kernel launch counts are set to 0 just before each run of phases 4-10
 and read just after, to show each path ran through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
@@ -1150,9 +1169,11 @@ def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict
     gathered), the mamba state of the B rows read and of the active rows
     written, the K/V of ``lengths + 1`` keys of each row read and one key of
     each active row written per attention layer, and the f32 logits."""
+    from repro_torch.tree import leaves
+
     b = len(lengths)
     elem = 2 if cfg.dtype == "bfloat16" else 4
-    weights = sum(x.numel() * x.element_size() for x in _leaves(params))
+    weights = sum(x.numel() * x.element_size() for x in leaves(params))
     if not cfg.tie_embeddings:
         weights -= (params["embed"].shape[0] - b) * cfg.d_model * elem
     per_row = sum(a[:, 0].numel() * a.element_size()
@@ -1168,6 +1189,7 @@ def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str 
     layers), bf16, random weights drawn on the card from ``seed``."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves
 
     cfg = full = get_config(arch)
     if layers:
@@ -1179,10 +1201,10 @@ def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str 
     t0 = time.perf_counter()
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
     torch.cuda.synchronize()
-    leaves = list(_leaves(params))
+    drawn = leaves(params)
     print(f"{tag} {arch} bf16 {cfg.n_layers} layers d_model {cfg.d_model}: "
-          f"{sum(x.numel() for x in leaves) / 1e9:.3f}B params "
-          f"({sum(x.numel() * x.element_size() for x in leaves) / 1e9:.2f} GB) drawn on the "
+          f"{sum(x.numel() for x in drawn) / 1e9:.3f}B params "
+          f"({sum(x.numel() * x.element_size() for x in drawn) / 1e9:.2f} GB) drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s", flush=True)
     return cfg, params
 
@@ -1196,6 +1218,7 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
     the device's busy share under torch.profiler."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ServeEngine
+    from repro_torch.tree import leaves
 
     eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
                       device="cuda")
@@ -1222,7 +1245,7 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
     bound_ms = sum(moved.values()) / bw * 1e3
     median = statistics.median(timed.ms)
     res = {"layers": cfg.n_layers, "published_layers": get_config(cfg.name).n_layers,
-           "params": sum(x.numel() for x in _leaves(params)), "requests": n_req,
+           "params": sum(x.numel() for x in leaves(params)), "requests": n_req,
            "done": done, "tokens": toks, "seconds": dt, "tokens_per_s": toks / dt,
            "decode_steps": len(timed.ms) + 1, "median_step_ms": median,
            "step_bound_ms": bound_ms, "step_bytes": moved, "first_step": first,
@@ -1317,11 +1340,13 @@ def encdec_step_bytes(cfg, params, lengths: list[int]) -> dict:
     encoder's, nor the cross K/V projections, spent in prefill), the self
     K/V of ``lengths + 1`` keys read and one key written per layer, every
     layer's cross K/V (``encoder_seq`` keys a row) and the f32 logits."""
+    from repro_torch.tree import leaves
+
     b = len(lengths)
     elem = 2 if cfg.dtype == "bfloat16" else 4
     spent = {id(params["blocks"][0]["cross"][w]) for w in ("wk", "wv")}
     decoder = {k: v for k, v in params.items() if k != "encoder"}
-    weights = sum(x.numel() * x.element_size() for x in _leaves(decoder) if id(x) not in spent)
+    weights = sum(x.numel() * x.element_size() for x in leaves(decoder) if id(x) not in spent)
     if not cfg.tie_embeddings:
         weights -= (params["embed"].shape[0] - b) * cfg.d_model * elem
     key = cfg.n_kv_heads * cfg.head_dim * 2 * elem                   # K and V of one key
@@ -1921,15 +1946,360 @@ def phase_sa_cache(torch, seed: int, kernels: dict, card: str) -> dict:
             "select_ms": card_ms}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, tuple):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
+# ---------------------------------------------------------------------------
+# phase 10: training
+# ---------------------------------------------------------------------------
+
+TRAIN_EXACT = ("tinyllama-1.1b", "olmoe-1b-7b", "mamba2-780m", "whisper-tiny")
+TRAIN_EXACT_SHAPE = (4, 512, 2)           # batch, seq, microbatches of the route checks
+TRAIN_FULL_SHAPE = (8, 2048, 2)           # tinyllama's pretraining length, 2 microbatches
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_PROFILED = 20, 9, 2
+TRAIN_TOLS = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2e-2)}   # loss rel, grad rel L2
+TRAIN_RESUME_TOL = 1e-3     # resumed losses: cuBLAS and the embedding's atomics reorder sums
+TRAIN_ATTN_SHAPE = (4, 2048, 32, 4, 64)   # one microbatch's attention call: B, S, H, KV, hd
+
+
+def train_config(arch: str, dtype: str):
+    """The route checks' configuration: the published width with the depth
+    cut to 2 layers (whisper-tiny at its full size), in ``dtype``."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    layers = cfg.n_layers if cfg.encoder_layers else 2
+    return dataclasses.replace(cfg, n_layers=layers, dtype=dtype)
+
+
+def train_batch(cfg, seed: int, batch: int, seq: int, step: int) -> dict:
+    """Step ``step`` of ``SyntheticLM(seed)`` on the card, with ``launch.train``'s
+    stub inputs for whisper and qwen2-vl."""
+    from repro_torch.data import SyntheticLM, to_device
+    from repro_torch.launch.train import modality_stubs
+
+    raw = SyntheticLM(cfg.vocab, seq, batch, seed=seed).batch(step)
+    return to_device(modality_stubs(raw, cfg, batch, seq, seed, step), "cuda")
+
+
+def flash_per_microbatch(cfg) -> int:
+    """Flash launches of one microbatch under remat: every attention call of
+    a decoder block forward and again in its recompute (self- and, for
+    whisper, cross-attention), and whisper's encoder layers once (its
+    encoder is not rematerialised, as in JAX)."""
+    per_block = attn_layers(cfg) * (2 if cfg.encoder_layers else 1)
+    return cfg.encoder_layers + 2 * per_block
+
+
+def train_route(torch, cfg, params, batch: dict, kernels: dict, plain: bool) -> dict:
+    """One train step (``make_train_step``, remat, the microbatches of
+    ``TRAIN_EXACT_SHAPE``) from a copy of ``params`` and a fresh optimizer
+    state, with the flash kernel or (``plain``) the plain version forward,
+    its launches counted; then the same step's gradient (``make_grad_fn``)."""
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    mb = TRAIN_EXACT_SHAPE[2]
+    step = make_train_step(cfg, remat=True, microbatches=mb)
+    copy = tree_map(lambda t: t.clone(), params)
+    with plain_flash() if plain else contextlib.nullcontext():
+        zero_launches(kernels)
+        _, _, metrics = step(copy, adamw_init(copy), batch)
+        torch.cuda.synchronize()
+        launches, designs = read_launches(kernels), read_designs(kernels)["flash_attention"]
+        del copy
+        grads, _ = make_grad_fn(cfg, remat=True, microbatches=mb)(params, batch)
+    return {"ce": float(metrics["ce"]), "grads": grads, "launches": launches,
+            "designs": designs}
+
+
+def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
+    """The kernel route's train step against the plain route's on the same
+    weights and batch: the losses within ``TRAIN_TOLS``' relative bound,
+    every gradient leaf within its relative L2 bound and nonzero through the
+    kernel route, the flash launches ``flash_per_microbatch`` x microbatches,
+    each of the design ``dtype`` takes (fp32: simt, bf16 at hd 64: wgmma)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten_with_paths
+
+    cfg = train_config(arch, dtype)
+    b, s, mb = TRAIN_EXACT_SHAPE
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    batch = train_batch(cfg, seed, b, s, 0)
+    kern = train_route(torch, cfg, params, batch, kernels, plain=False)
+    plain = train_route(torch, cfg, params, batch, kernels, plain=True)
+    loss_tol, grad_tol = TRAIN_TOLS[dtype]
+    rel = {key: rel_l2(g, w) for (key, g), w in
+           zip(flatten_with_paths(kern["grads"]).items(), flatten_with_paths(plain["grads"]).values())}
+    zero = [key for key, g in flatten_with_paths(kern["grads"]).items() if not bool(g.abs().max() > 0)]
+    finite = all(bool(torch.isfinite(g).all()) for g in flatten_with_paths(kern["grads"]).values())
+    loss_rel = abs(kern["ce"] - plain["ce"]) / abs(plain["ce"])
+    want = flash_per_microbatch(cfg) * mb
+    design = "simt" if dtype == "float32" else "wgmma"
+    worst = max(rel, key=rel.get)
+    res = {"arch": arch, "dtype": dtype, "layers": cfg.n_layers, "batch": b, "seq": s,
+           "microbatches": mb, "ce_kernel": kern["ce"], "ce_plain": plain["ce"],
+           "loss_rel": loss_rel, "grad_leaves": len(rel), "max_grad_rel_l2": rel[worst],
+           "worst_leaf": worst, "zero_grad_leaves": zero, "flash_launches":
+           kern["launches"]["flash_attention"], "flash_expected": want,
+           "designs": kern["designs"], "plain_route_flash_launches":
+           plain["launches"]["flash_attention"]}
+    print(f"[train] {arch} {dtype} d_model {cfg.d_model}, {cfg.n_layers} layers, batch {b} x "
+          f"{s}, {mb} microbatches, remat: ce kernel route {kern['ce']:.6f} vs plain "
+          f"{plain['ce']:.6f} (rel {loss_rel:.2e}, tol {loss_tol:g}); {len(rel)} gradient "
+          f"leaves, max rel L2 {rel[worst]:.2e} ({worst}; tol {grad_tol:g}), zero leaves "
+          f"{zero}; flash launches {res['flash_launches']} (expected {want}) {kern['designs']}, "
+          f"plain route {res['plain_route_flash_launches']}", flush=True)
+    check(loss_rel <= loss_tol, f"train {arch} {dtype}: loss differs from the plain route's")
+    check(rel[worst] <= grad_tol, f"train {arch} {dtype}: gradient leaf {worst} differs "
+          f"from the plain route's by {rel[worst]:.2e} relative L2")
+    check(not zero and finite, f"train {arch} {dtype}: leaves with a zero or non-finite "
+          f"gradient through the kernel route: {zero}")
+    check(res["flash_launches"] == want and kern["designs"][design] == want,
+          f"train {arch} {dtype}: {kern['designs']} flash launches, expected {want} {design}")
+    check(res["plain_route_flash_launches"] == 0, f"train {arch}: the plain route launched flash")
+    del params, batch, kern, plain
+    free_memory(torch)
+    return res
+
+
+def train_profile(torch, run, steps: int) -> dict:
+    """Device ms per step under torch.profiler, split into the flash
+    kernel's forward launches, the attention backward (the range
+    ``flash_attention_backward``), the optimizer (``adamw_update``), the
+    GEMMs outside those two ranges, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            run()
+        torch.cuda.synchronize()
+    ranges = {"flash_attention_backward": [0.0, 0.0], "adamw_update": [0.0, 0.0]}
+    # device kernels by name; the ranges also show up as device-side annotations
+    by_name = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / steps
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges}
+    is_gemm = lambda name: any(s in name for s in ("gemm", "nvjet", "cutlass", "xmma"))
+    for ev in prof.events():
+        tag, up = None, ev
+        while up is not None and tag is None:
+            tag = up.name if up.name in ranges else None
+            up = up.cpu_parent
+        for k in ev.kernels if tag else ():
+            ranges[tag][0] += k.duration / 1e3 / steps
+            ranges[tag][1] += k.duration / 1e3 / steps if is_gemm(k.name) else 0.0
+    total = sum(by_name.values())
+    split = {"flash_forward": sum(ms for n, ms in by_name.items() if "flash" in n),
+             "attention_backward": ranges["flash_attention_backward"][0],
+             "optimizer": ranges["adamw_update"][0],
+             "gemm": sum(ms for n, ms in by_name.items() if is_gemm(n))
+             - ranges["flash_attention_backward"][1] - ranges["adamw_update"][1]}
+    split["other"] = total - sum(split.values())
+    return {"device_ms_per_step": total, "split_ms_per_step": split,
+            "top": sorted(((ms, n[:90]) for n, ms in by_name.items()), reverse=True)[:10],
+            "kernels_ms_per_step": by_name}
+
+
+def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
+    """tinyllama-1.1b at its published size, bf16 with an f32 master copy:
+    ``TRAIN_STEPS`` steps of ``make_train_step`` (remat, 2 microbatches) on
+    ``SyntheticLM(seed)`` through the ``Prefetcher``, a checkpoint saved at
+    ``TRAIN_CKPT_STEP`` and at the end; the end's restored into freshly drawn
+    weights equals the trained state bitwise; steps after ``TRAIN_CKPT_STEP``
+    rerun from its restore give the same losses (``TRAIN_RESUME_TOL``), the
+    last ``TRAIN_PROFILED`` under torch.profiler."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import Prefetcher, SyntheticLM, to_device
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import leaves
+
+    cfg = get_config("tinyllama-1.1b")
+    b, s, mb = TRAIN_FULL_SHAPE
+    gen = torch.Generator(device="cuda")
+    params = T.init_params(cfg, gen.manual_seed(seed), "cuda")
+    opt = adamw_init(params)
+    n_params = sum(p.numel() for p in leaves(params))
+    state_bytes = sum(t.numel() * t.element_size() for t in leaves((params, opt)))
+    state_gb = state_bytes / 1e9
+    step_fn = make_train_step(cfg, remat=True, microbatches=mb, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(cfg.vocab, s, b, seed=seed)
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = CheckpointManager(ckpt_dir)
+    it = Prefetcher(({"step": i, **data.batch(i)} for i in range(TRAIN_STEPS)), depth=4)
+    losses, norms, ms = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    save = {}
+    try:
+        for raw in it:
+            i = raw.pop("step")
+            batch = to_device(raw, "cuda")
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["ce"]))
+            norms.append(float(met["grad_norm"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == TRAIN_CKPT_STEP:
+                t0 = time.perf_counter()
+                ckpt.save_async(i, (params, opt))
+                save["save_ms"] = (time.perf_counter() - t0) * 1e3
+                save["bytes"] = state_bytes
+    finally:
+        it.close()
+    launches = read_launches(kernels)
+    designs = read_designs(kernels)["flash_attention"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    committed = ckpt.wait_for_commit(TRAIN_CKPT_STEP, 600)
+    save["wait_commit_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ckpt.save_async(TRAIN_STEPS - 1, (params, opt))
+    save["final_save_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    drained = ckpt.drain(900)
+    save["drain_ms"] = (time.perf_counter() - t0) * 1e3
+    save["bytes_written"] = ckpt.stats["bytes"]
+    check(committed and drained and ckpt.latest_step() == TRAIN_STEPS - 1,
+          f"train: the checkpoints did not commit ({ckpt.stats})")
+
+    free_memory(torch)
+    fresh = T.init_params(cfg, gen.manual_seed(seed + 1), "cuda")
+    like = (fresh, adamw_init(fresh))
+    t0 = time.perf_counter()
+    _, restored = ckpt.restore(like)
+    torch.cuda.synchronize()
+    save["restore_ms"] = (time.perf_counter() - t0) * 1e3
+    same = all(torch.equal(x, y) and x.dtype == y.dtype
+               for x, y in zip(leaves(restored), leaves((params, opt))))
+    del restored, params, opt
+    free_memory(torch)
+    _, (params, opt) = ckpt.restore(like, step=TRAIN_CKPT_STEP)
+    del like, fresh
+    free_memory(torch)
+    rerun = {}
+
+    def resume_step():
+        i = TRAIN_CKPT_STEP + 1 + len(rerun)
+        nonlocal params, opt
+        params, opt, met = step_fn(params, opt, to_device(data.batch(i), "cuda"))
+        rerun[i] = float(met["ce"])
+
+    for _ in range(TRAIN_STEPS - TRAIN_CKPT_STEP - 1 - TRAIN_PROFILED):
+        resume_step()
+    prof = train_profile(torch, resume_step, TRAIN_PROFILED)
+    ckpt.close()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del params, opt
+    free_memory(torch)
+
+    median = statistics.median(ms[1:])
+    tokens = b * s
+    attn_flops = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s * tokens
+    model_flops = 6 * n_params * tokens + attn_flops
+    resume_rel = max(abs(rerun[i] - losses[i]) / abs(losses[i]) for i in rerun)
+    busy = prof["device_ms_per_step"]
+    res = {"arch": cfg.name, "params": n_params, "state_gb": state_gb, "batch": b, "seq": s,
+           "microbatches": mb, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+           "step_ms": ms, "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
+           "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
+           "mfu": model_flops / (median / 1e3) / BF16_PEAK_FLOPS, "peak_gb": peak_gb,
+           "launches": launches, "designs": designs, "checkpoint": save,
+           "restore_bitwise": same, "resumed_losses": rerun, "resume_max_rel": resume_rel,
+           "profile": prof, "busy_share": busy / median if busy else None, "card": card}
+    print(f"[train] {cfg.name} full size, bf16 weights + f32 master: {n_params / 1e9:.3f}B "
+          f"params, {state_gb:.2f} GB of weights and optimizer state; batch {b} x {s}, "
+          f"{mb} microbatches, remat, {TRAIN_STEPS} steps: ce {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, grad norms {min(norms):.3f}-{max(norms):.3f}", flush=True)
+    print(f"[train] median step {median:.1f} ms (steps 1-{TRAIN_STEPS - 1}; step 0 "
+          f"{ms[0]:.1f}), {res['tokens_per_s']:,.0f} tokens/s, model FLOP share "
+          f"{100 * res['mfu']:.2f} % of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s (6 N tokens + "
+          f"6 L H hd S tokens of causal attention = {model_flops / 1e12:.1f} TFLOP a step, "
+          f"N = {n_params:,}); peak {peak_gb:.1f} GB; flash launches {launches['flash_attention']} "
+          f"{designs} on {card}", flush=True)
+    split = prof["split_ms_per_step"]
+    print(f"[train] torch.profiler over {TRAIN_PROFILED} resumed steps: device busy "
+          f"{busy:.1f} ms a step = {100 * (res['busy_share'] or 0):.1f} % of the median step; "
+          + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + " ms", flush=True)
+    for t, name in prof["top"]:
+        print(f"[train]   {t:9.3f} ms/step  {name}")
+    print(f"[train] checkpoint: {save['bytes'] / 1e9:.2f} GB a save; step {TRAIN_CKPT_STEP}'s "
+          f"save_async {save['save_ms']:.0f} ms on the train thread, its commit awaited "
+          f"{save['wait_commit_ms']:.0f} ms after the last step; final save_async "
+          f"{save['final_save_ms']:.0f} ms, drain {save['drain_ms']:.0f} ms; restore "
+          f"{save['restore_ms']:.0f} ms, bitwise equal to the trained state: {same}; steps "
+          f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS - 1} rerun from step {TRAIN_CKPT_STEP}'s "
+          f"restore: max rel loss difference {resume_rel:.2e} (tol {TRAIN_RESUME_TOL:g})",
+          flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and all(np.isfinite(list(rerun.values()))),
+          "train: a loss or grad norm is not finite")
+    check(same, "train: the restored checkpoint differs from the trained state")
+    check(resume_rel <= TRAIN_RESUME_TOL, "train: the resumed losses differ")
+    want = cfg.n_layers * 2 * mb * TRAIN_STEPS
+    check(launches["flash_attention"] == want and designs["wgmma"] == want,
+          f"train: {designs} flash launches in {TRAIN_STEPS} steps, expected {want} wgmma")
+    return res
+
+
+def time_attention_backward(torch, card: str) -> dict:
+    """One attention call's gradient at tinyllama's training shape (a
+    microbatch of 4 x 2,048, H 32, KV 4, hd 64, causal, bf16): the backward
+    of ``ops.flash_attention`` (``ref.flash_attention_bwd``), of autograd
+    through the plain version, and of ``scaled_dot_product_attention``
+    (the library's, timed as a yardstick only), beside the bound of the
+    function (dq, dk, dv from q, k, v, do: the five S x S x hd products of
+    a causal backward at the bf16 peak; the bytes are far below it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    b, s, h, kv, hd = TRAIN_ATTN_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+
+    def backward_ms(fwd, iters: int) -> float:
+        out = fwd()
+        run = lambda _: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+        return time_ms(torch, run, iters)
+
+    t = {"ms": backward_ms(lambda: ops.flash_attention(q, k, v), 5),
+         "plain_ms": backward_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+         "library_ms": backward_ms(lambda: F.scaled_dot_product_attention(
+             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+             enable_gqa=True).transpose(1, 2), 10)}
+    flops = 5 * 2 * b * h * s * s * hd / 2
+    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2
+    t.update(shape=[b, s, h, kv, hd], flops=flops, bytes=nbytes, bound_by="operations",
+             bound_ms=max(flops / BF16_PEAK_FLOPS, nbytes / hbm_bytes_per_s(card)) * 1e3)
+    print(f"[train] attention backward at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
+          f"ops.flash_attention's {t['ms']:.2f} ms, autograd of the plain version "
+          f"{t['plain_ms']:.2f} ms, scaled_dot_product_attention's {t['library_ms']:.3f} ms; "
+          f"bound {t['bound_ms']:.3f} ms by operations ({flops:.3e} FLOP at "
+          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s) on {card}", flush=True)
+    del q, k, v, do
+    free_memory(torch)
+    return t
+
+
+def phase_train(torch, seed: int, kernels: dict, card: str) -> dict:
+    """Phase 10: the kernel route against the plain route, fp32 for each
+    of ``TRAIN_EXACT`` and bf16 for tinyllama, then tinyllama-1.1b trained
+    at full size."""
+    exact = {arch: train_exact(torch, arch, "float32", seed, kernels) for arch in TRAIN_EXACT}
+    exact["tinyllama-1.1b bf16"] = train_exact(torch, "tinyllama-1.1b", "bfloat16", seed,
+                                               kernels)
+    backward = time_attention_backward(torch, card)
+    full = train_full(torch, seed, kernels, card)
+    launches = {**{f"{k} route check": r["flash_launches"] for k, r in exact.items()},
+                "tinyllama-1.1b full": full["launches"]["flash_attention"]}
+    return {"exact": exact, "attention_backward": backward, "full": full,
+            "flash_launches": launches}
 
 
 def ptxas_report(log: str) -> dict:
@@ -2049,6 +2419,8 @@ def main() -> int:
         families = phase_families(torch, args.seed, kernels, card)
         # 9. encoder-decoder and vision
         encdec = phase_encdec_vision(torch, args.seed, kernels, card)
+        # 10. training
+        train = phase_train(torch, args.seed, kernels, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2096,7 +2468,8 @@ def main() -> int:
          "max_err_bf16": flash["max_err_bf16"], "gemma2_swa": flash["gemma2_swa"],
          "serve_phase_launches": serve["launches"]["flash_attention"],
          "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"],
-         **family_launches("flash_attention")},
+         **family_launches("flash_attention"),
+         "train_phase_launches": train["flash_launches"]},
         {**common, "name": "flush_scores",
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
@@ -2113,7 +2486,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
          "prefill": prefill, "families": families, "encdec_vision": encdec,
-         "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families},
+         "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families,
+         "train": train},
         indent=1, default=str))
     print(json.dumps(line))
     print(smi)

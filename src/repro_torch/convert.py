@@ -5,8 +5,8 @@ turned into numpy arrays (``jax.tree.map(np.asarray, params)``) and gives the
 port's tree: the same keys, the same stacking over ``n_blocks``, and each
 leaf's own dtype (in a bf16 model the norm scales, the MoE router and the
 Mamba2 ``A_log``, ``D``, ``dt_bias`` and ``norm`` stay float32).
-``cache_state_from_jax`` does the same for an SA-cache state. Nothing here
-imports JAX.
+``opt_state_from_jax`` carries an optimizer state across the same way, and
+``cache_state_from_jax`` an SA-cache state. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sa_cache import CacheState
+from repro_torch.optim import AdamWState
 
 
 def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
@@ -35,6 +36,17 @@ def params_from_jax(tree, device=None):
     if isinstance(tree, (tuple, list)):
         return tuple(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(np.asarray(tree), device)
+
+
+def opt_state_from_jax(state, device=None) -> AdamWState:
+    """A JAX ``repro.optim.AdamWState`` (or anything with its fields), its
+    leaves numpy arrays or convertible to them, as the port's: ``step`` a 0-d
+    int32 tensor, ``m``, ``v`` and ``master`` (None stays None) through
+    ``params_from_jax``."""
+    master = None if state.master is None else params_from_jax(state.master, device)
+    return AdamWState(step=tensor_from_numpy(np.asarray(state.step, np.int32), device),
+                      m=params_from_jax(state.m, device), v=params_from_jax(state.v, device),
+                      master=master)
 
 
 def cache_state_from_jax(state, device=None) -> CacheState:

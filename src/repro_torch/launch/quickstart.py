@@ -2,17 +2,18 @@
 
   PYTHONPATH=src python -m repro_torch.launch.quickstart [--device cuda|cpu]
 
-The twin of parts 1-2 of ``examples/quickstart.py``:
+The twin of ``examples/quickstart.py``:
 
 1. the SA-cache and its GClock flush scores (``core/sa_cache.py``), scored
    for all sets at once through ``ops.flush_scores`` (the Hopper kernel on
    the card) and checked against the plain version and the per-set numpy
    policy (``core/policies.py``);
 2. the dirty-page flusher reading that cache and filling dual-priority
-   queues, where an application read overtakes the flush backlog.
+   queues, where an application read overtakes the flush backlog;
+3. a tiny end-to-end training run (``launch/train.py``: reduced
+   tinyllama-1.1b, 20 steps).
 
-Part 3 of the JAX quickstart (training a tiny LM) waits for the port of the
-training stack. ``--device`` defaults to cuda and raises if there is no card.
+``--device`` defaults to cuda and raises if there is no card.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.core import policies, sa_cache
 from repro_torch.core.flusher import DirtyPageFlusher
 from repro_torch.core.io_queues import HIGH, LOW, DualQueue, IORequest
 from repro_torch.kernels import ref
+from repro_torch.launch.train import main as train
 from repro_torch.serving.engine import resolve_device
 
 NUM_SETS, SET_SIZE = 4, 12
@@ -81,9 +83,14 @@ def main(argv=None) -> dict:
         q.submit(IORequest(payload=fr, priority=LOW))
     q.submit(IORequest(payload="application read", priority=HIGH))
     first = q.pop_next()
-    print("first issued request:", first.payload, "(HIGH overtakes the backlog)")
+    print("first issued request:", first.payload, "(HIGH overtakes the backlog)\n")
+
+    # --- 3. tiny end-to-end training ------------------------------------------
+    losses = train(["--arch", "tinyllama-1.1b", "--preset", "smoke", "--steps", "20",
+                    "--batch", "8", "--seq", "64", "--lr", "3e-3", "--device", args.device])
+    print(f"\ntrained 20 steps: loss {losses[0]:.3f} -> {losses[-1]:.3f}")
     return {"scores": scores.cpu().numpy(), "requests": requests, "first": first.payload,
-            "cache": cache}
+            "cache": cache, "losses": losses}
 
 
 if __name__ == "__main__":

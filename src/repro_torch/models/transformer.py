@@ -8,7 +8,8 @@ mirroring ``repro/models/transformer.py``.
   leading dim ``n_blocks``, the same tree as the JAX package, so converted
   JAX weights drop in; where JAX runs the stack as one ``lax.scan``, the port
   loops over blocks in Python.
-* Train/prefill forward, single-token decode with KV caches (ring buffers
+* Train/prefill forward (with ``remat``) and the chunked ``lm_loss``,
+  single-token decode with KV caches (ring buffers
   for sliding-window layers) and SSM-state caches.
 * Whisper: an encoder over precomputed frames (the conv front end is a
   stub, as in JAX), sinusoidal absolute positions, and cross-attention in
@@ -34,8 +35,10 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.tree import tree_map
 from . import layers as L
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step
@@ -97,16 +100,10 @@ def _stacked_draws(draw, n: int):
     for i in range(n):
         tree = draw()
         if out is None:
-            out = _tree_map(lambda a: a.new_empty((n, *a.shape)), tree)
-        _tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+            out = tree_map(lambda a: a.new_empty((n, *a.shape)), tree)
+        tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
         del tree
     return out
-
-
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    return fn(tree, *rest)
 
 
 def layer_params(tree, l: int):
@@ -252,12 +249,6 @@ def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig):
     return x, None
 
 
-def _add_aux(aux: dict, losses) -> dict:
-    if losses is None:
-        return aux
-    return {k: aux[k] + losses[k] for k in aux}
-
-
 def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross_kv=None):
     """One sublayer (attn or mamba, then whisper's cross-attention over
     ``cross_kv`` = (k, v) where given, then ffn) in train/prefill form.
@@ -306,31 +297,103 @@ def _encoder_forward(params, frames, cfg: ModelConfig):
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
+def block_slices(tree, n: int) -> list:
+    """The ``n`` per-block slices of a stacked tree, as ``layer_params``
+    gives them one at a time, from one ``unbind`` per leaf: under autograd
+    the stacked leaf's gradient is one stack of the blocks' gradients, where
+    ``n`` separate index views would each add a zero-filled tensor of the
+    whole stack."""
+    if isinstance(tree, dict):
+        per_key = {k: block_slices(v, n) for k, v in tree.items()}
+        return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
+    return list(torch.unbind(tree))
+
+
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None,
-            vis_embeds=None):
+            vis_embeds=None, remat: bool | str = True):
     """Trunk forward. Returns (final_hidden (B,S,D), aux losses dict).
     ``enc_frames`` (B, enc_seq, D): whisper's encoder input, required for an
     encoder-decoder model; ``vis_embeds`` (B, nv, D): qwen2-vl's patch
-    embeddings (``embed_tokens``)."""
+    embeddings (``embed_tokens``).
+
+    ``remat``: each block (one pass of the config's pattern) runs under
+    ``torch.utils.checkpoint`` (non-reentrant) while autograd records, as
+    JAX's ``jax.checkpoint`` of its scan body: its activations are
+    recomputed in the backward pass, attention kernels included. JAX's
+    ``remat="dots"`` (the ``dots_saveable`` policy) has no exact PyTorch
+    counterpart and raises ``NotImplementedError``."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (JAX's jax.checkpoint_policies.dots_saveable: keep matmul "
+            "outputs, recompute the rest) has no counterpart in the port; use remat=True "
+            "or False")
     b, s = tokens.shape
     if positions is None:
         positions = _positions(b, s, cfg, tokens.device)
     x = embed_tokens(params, tokens, cfg, vis_embeds)
     cross = encode_cross_kv(params, enc_frames, cfg) if cfg.encoder_layers else None
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux = {"lb": zero, "z": zero}
-    for l in range(cfg.n_blocks):
+    blocks = [block_slices(tree, cfg.n_blocks) for tree in params["blocks"]]
+
+    def block(x, lb, z, l):
         for i, spec in enumerate(cfg.block):
-            x, losses = _apply_sublayer(x, layer_params(params["blocks"][i], l), spec, cfg,
-                                        positions=positions, cross_kv=_layer_kv(cross, l))
-            aux = _add_aux(aux, losses)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+            x, losses = _apply_sublayer(x, blocks[i][l], spec, cfg, positions=positions,
+                                        cross_kv=_layer_kv(cross, l))
+            if losses is not None:
+                lb, z = lb + losses["lb"], z + losses["z"]
+        return x, lb, z
+
+    lb = z = zero
+    for l in range(cfg.n_blocks):
+        if remat and torch.is_grad_enabled():
+            x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False)
+        else:
+            x, lb, z = block(x, lb, z, l)
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": lb, "z": z}
 
 
 def forward_logits(params, tokens, cfg: ModelConfig, **kw):
     """Materialized logits — tests and small configs."""
     x, aux = forward(params, tokens, cfg, **kw)
     return logits_fn(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence so (B, S, vocab) is never held)
+# ---------------------------------------------------------------------------
+
+def lm_loss(params, cfg: ModelConfig, hidden, labels, mask=None, seq_chunk: int = 1024):
+    """Masked mean cross-entropy over the vocab, ``labels`` (B, S) int.
+
+    JAX's rule: chunks of ``c = min(seq_chunk, S)`` positions, one chunk of
+    S when c does not divide S. Each chunk's f32 logits (through
+    ``head_weight``, softcapped for gemma2) live only inside a
+    ``torch.utils.checkpoint``, as under JAX's ``jax.checkpoint``, and are
+    recomputed in the backward pass. Divides by ``max(mask.sum(), 1)``."""
+    b, s, _ = hidden.shape
+    w = head_weight(params, cfg)
+    c = min(seq_chunk, s)
+    if s % c:
+        c = s
+    if mask is None:
+        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    labels = labels.long()
+
+    def chunk_sum(xc, lc, mc):
+        logits = (xc @ w).float()                                   # (B, c, V)
+        if cfg.logit_softcap:
+            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
+        return ((lse - tgt) * mc).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, c):
+        sl = slice(c0, c0 + c)
+        total = total + checkpoint(chunk_sum, hidden[:, sl], labels[:, sl], mask[:, sl],
+                                   use_reentrant=False)
+    return total / mask.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------
