@@ -27,7 +27,8 @@ last line:
               (S 512), whisper-tiny's encoder (1,500 x 1,500 frames, non-causal,
               hd 64) and cross-attention (4 queries over 1,500 keys),
               qwen2-vl-72b's prefill heads (S 1,088, group 8, hd 128; its decode
-              heads for paged too) and the wgmma kernel's edges (fp32
+              heads for paged too), tinyllama-1.1b's training microbatch
+              (4 x 2,048, H 32, KV 4, hd 64) and the wgmma kernel's edges (fp32
               2e-5, bf16 2e-2, each launched as the design it expects, two
               runs bitwise equal), then at qwen3-8b's prefill shape and
               gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
@@ -96,12 +97,16 @@ last line:
               ``ops.FlashAttention``, whose backward is PyTorch ops): at full
               width and 2 layers in fp32 (whisper-tiny at full size) for
               tinyllama-1.1b, olmoe-1b-7b, mamba2-780m and whisper-tiny, one
-              step (batch 4 x 512, 2 microbatches) through the kernel and
-              through the plain version: losses within 1e-5 relative, every
+              step's gradient (``make_grad_fn``, batch 4 x 512, 2
+              microbatches) through the kernel and through the plain version: losses within 1e-5 relative, every
               gradient leaf within 1e-5 relative L2 and nonzero through the
               kernel, flash launches = attention calls x 2 (forward and the
               recompute) x microbatches, all simt; tinyllama in bf16: 1e-2,
-              2e-2, all wgmma; then tinyllama-1.1b at its published size, bf16
+              2e-2, all wgmma; one attention call at tinyllama's training
+              shape (4 x 2,048, bf16): the Function's output and dq, dk, dv
+              held to the plain version's and its autograd's (2e-2, 1e-2
+              relative L2) and timed beside SDPA's backward; then
+              tinyllama-1.1b at its published size, bf16
               with an f32 master copy, 20 steps of batch 8 x 2,048 from
               SyntheticLM through the Prefetcher, a checkpoint at step 9 and at
               the end (save, wait and drain timed), the end's restored into
@@ -123,6 +128,9 @@ two commits can be compared in one run, say parent, change, change, parent.
 ``--flush-probe SRC`` does the same for the flush kernel (``flush_probe``):
 its times at 131,072 and 1,048,576 sets of 12 rotated past the L2, and the
 SASS of its library (``cuobjdump -sass``; the text beside the library).
+``--backward-probe SRC`` does the same for the attention backward at
+tinyllama's training shape (``time_attention_backward``: the Function's
+output and gradients held to the plain version's, then timed).
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -214,6 +222,7 @@ FLASH_CASES = [
     (4, 1500, 1500, 6, 6, 64, False, 0, 0.0, 0),    # whisper-tiny encoder: ragged 128-key tail
     (4, 4, 1500, 6, 6, 64, False, 0, 0.0, 0),       # whisper-tiny cross-attention: 124 rows past Sq
     (1, 1088, 1088, 64, 8, 128, True, 0, 0.0, 0),   # qwen2-vl-72b vision prefill (group 8)
+    (4, 2048, 2048, 32, 4, 64, True, 0, 0.0, 0),    # tinyllama-1.1b training microbatch
 ]
 NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
 WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
@@ -1957,6 +1966,7 @@ TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_PROFILED = 20, 9, 2
 TRAIN_TOLS = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2e-2)}   # loss rel, grad rel L2
 TRAIN_RESUME_TOL = 1e-3     # resumed losses: cuBLAS and the embedding's atomics reorder sums
 TRAIN_ATTN_SHAPE = (4, 2048, 32, 4, 64)   # one microbatch's attention call: B, S, H, KV, hd
+TRAIN_ATTN_GRAD_TOL = 1e-2   # relative L2 of dq, dk, dv in bf16 (tests/test_torch_cuda.py)
 
 
 def train_config(arch: str, dtype: str):
@@ -1989,24 +1999,18 @@ def flash_per_microbatch(cfg) -> int:
 
 
 def train_route(torch, cfg, params, batch: dict, kernels: dict, plain: bool) -> dict:
-    """One train step (``make_train_step``, remat, the microbatches of
-    ``TRAIN_EXACT_SHAPE``) from a copy of ``params`` and a fresh optimizer
-    state, with the flash kernel or (``plain``) the plain version forward,
-    its launches counted; then the same step's gradient (``make_grad_fn``)."""
-    from repro_torch.launch.steps import make_grad_fn, make_train_step
-    from repro_torch.optim import adamw_init
-    from repro_torch.tree import tree_map
+    """The train step's gradient and metrics (``make_grad_fn``, which
+    ``make_train_step`` runs before AdamW; remat, the microbatches of
+    ``TRAIN_EXACT_SHAPE``), with the flash kernel or (``plain``) the plain
+    version forward, its launches counted."""
+    from repro_torch.launch.steps import make_grad_fn
 
-    mb = TRAIN_EXACT_SHAPE[2]
-    step = make_train_step(cfg, remat=True, microbatches=mb)
-    copy = tree_map(lambda t: t.clone(), params)
+    grad_fn = make_grad_fn(cfg, remat=True, microbatches=TRAIN_EXACT_SHAPE[2])
     with plain_flash() if plain else contextlib.nullcontext():
         zero_launches(kernels)
-        _, _, metrics = step(copy, adamw_init(copy), batch)
+        grads, metrics = grad_fn(params, batch)
         torch.cuda.synchronize()
         launches, designs = read_launches(kernels), read_designs(kernels)["flash_attention"]
-        del copy
-        grads, _ = make_grad_fn(cfg, remat=True, microbatches=mb)(params, batch)
     return {"ce": float(metrics["ce"]), "grads": grads, "launches": launches,
             "designs": designs}
 
@@ -2122,6 +2126,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     params = T.init_params(cfg, gen.manual_seed(seed), "cuda")
     opt = adamw_init(params)
     n_params = sum(p.numel() for p in leaves(params))
+    # the model-FLOP count's N: an untied input embedding is a gather, no matmul
+    n_matmul = n_params - (0 if cfg.tie_embeddings else params["embed"].numel())
     state_bytes = sum(t.numel() * t.element_size() for t in leaves((params, opt)))
     state_gb = state_bytes / 1e9
     step_fn = make_train_step(cfg, remat=True, microbatches=mb, total_steps=TRAIN_STEPS)
@@ -2200,10 +2206,10 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     median = statistics.median(ms[1:])
     tokens = b * s
     attn_flops = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * s * tokens
-    model_flops = 6 * n_params * tokens + attn_flops
+    model_flops = 6 * n_matmul * tokens + attn_flops
     resume_rel = max(abs(rerun[i] - losses[i]) / abs(losses[i]) for i in rerun)
     busy = prof["device_ms_per_step"]
-    res = {"arch": cfg.name, "params": n_params, "state_gb": state_gb, "batch": b, "seq": s,
+    res = {"arch": cfg.name, "params": n_params, "matmul_params": n_matmul, "state_gb": state_gb, "batch": b, "seq": s,
            "microbatches": mb, "steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
            "step_ms": ms, "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
            "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
@@ -2219,7 +2225,7 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
           f"{ms[0]:.1f}), {res['tokens_per_s']:,.0f} tokens/s, model FLOP share "
           f"{100 * res['mfu']:.2f} % of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s (6 N tokens + "
           f"6 L H hd S tokens of causal attention = {model_flops / 1e12:.1f} TFLOP a step, "
-          f"N = {n_params:,}); peak {peak_gb:.1f} GB; flash launches {launches['flash_attention']} "
+          f"N = {n_matmul:,}, the parameters less the untied input embedding); peak {peak_gb:.1f} GB; flash launches {launches['flash_attention']} "
           f"{designs} on {card}", flush=True)
     split = prof["split_ms_per_step"]
     print(f"[train] torch.profiler over {TRAIN_PROFILED} resumed steps: device busy "
@@ -2245,9 +2251,20 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     return res
 
 
+def backward_probe(torch, seed: int, card: str) -> dict:
+    """``--backward-probe SRC``: ``time_attention_backward`` with the port
+    package under SRC, so two commits' backwards can be compared in one run."""
+    from repro_torch.kernels import ops
+
+    return {"ops_module": ops.__file__, "card": card, **time_attention_backward(torch, card)}
+
+
 def time_attention_backward(torch, card: str) -> dict:
     """One attention call's gradient at tinyllama's training shape (a
-    microbatch of 4 x 2,048, H 32, KV 4, hd 64, causal, bf16): the backward
+    microbatch of 4 x 2,048, H 32, KV 4, hd 64, causal, bf16): first
+    ``ops.flash_attention``'s output held to the plain version's
+    (``FLASH_BF16_TOL``) and its dq, dk, dv to autograd through the plain
+    version (``TRAIN_ATTN_GRAD_TOL`` relative L2); then the backward
     of ``ops.flash_attention`` (``ref.flash_attention_bwd``), of autograd
     through the plain version, and of ``scaled_dot_product_attention``
     (the library's, timed as a yardstick only), beside the bound of the
@@ -2262,6 +2279,24 @@ def time_attention_backward(torch, card: str) -> dict:
     q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
                    for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q, k, v)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    wants = torch.autograd.grad(want, (q, k, v), do)
+    out_err = (out.float() - want.float()).abs().max().item()
+    out_ok = bool(torch.allclose(out.float(), want.float(), atol=FLASH_BF16_TOL,
+                                 rtol=FLASH_BF16_TOL))
+    grad_rel = dict(zip(("dq", "dk", "dv"), (rel_l2(g, w) for g, w in zip(grads, wants))))
+    print(f"[train] attention at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
+          f"ops.flash_attention's output vs the plain version max_abs_err {out_err:.3e} (tol "
+          f"{FLASH_BF16_TOL:g}); its gradients vs autograd through the plain version, "
+          f"relative L2 " + ", ".join(f"{n} {e:.2e}" for n, e in grad_rel.items())
+          + f" (tol {TRAIN_ATTN_GRAD_TOL:g})", flush=True)
+    check(out_ok, f"attention at {TRAIN_ATTN_SHAPE}: the kernel disagrees with the plain version")
+    check(max(grad_rel.values()) <= TRAIN_ATTN_GRAD_TOL, f"attention at {TRAIN_ATTN_SHAPE}: "
+          f"the Function's gradients differ from the plain version's autograd: {grad_rel}")
+    del out, want, grads, wants
+    free_memory(torch)
 
     def backward_ms(fwd, iters: int) -> float:
         out = fwd()
@@ -2275,7 +2310,7 @@ def time_attention_backward(torch, card: str) -> dict:
              enable_gqa=True).transpose(1, 2), 10)}
     flops = 5 * 2 * b * h * s * s * hd / 2
     nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2
-    t.update(shape=[b, s, h, kv, hd], flops=flops, bytes=nbytes, bound_by="operations",
+    t.update(shape=[b, s, h, kv, hd], out_max_abs_err=out_err, grad_rel_l2=grad_rel, flops=flops, bytes=nbytes, bound_by="operations",
              bound_ms=max(flops / BF16_PEAK_FLOPS, nbytes / hbm_bytes_per_s(card)) * 1e3)
     print(f"[train] attention backward at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
           f"ops.flash_attention's {t['ms']:.2f} ms, autograd of the plain version "
@@ -2363,11 +2398,15 @@ def main() -> int:
     probes.add_argument("--decode-probe", metavar="SRC",
                         help="only time the paged kernel's decode (decode_probe) with the port "
                              "package found under SRC, print it as one JSON line and exit")
+    probes.add_argument("--backward-probe", metavar="SRC",
+                        help="only check and time the attention backward "
+                             "(time_attention_backward) with the port package found under SRC, "
+                             "print it as one JSON line and exit")
     probes.add_argument("--flush-probe", metavar="SRC",
                         help="only time the flush kernel (flush_probe) with the port package "
                              "found under SRC, print it as one JSON line and exit")
     args = ap.parse_args()
-    probe_src = args.decode_probe or args.flush_probe
+    probe_src = args.decode_probe or args.flush_probe or args.backward_probe
     if probe_src:
         sys.path.insert(0, str(Path(probe_src).resolve()))
 
@@ -2390,7 +2429,8 @@ def main() -> int:
                "flash_attention": flash_mod.flash_attention,
                "flush_scores": flush_mod.flush_scores}
     if probe_src:
-        probe = decode_probe if args.decode_probe else flush_probe
+        probe = (decode_probe if args.decode_probe else flush_probe if args.flush_probe
+                 else backward_probe)
         try:
             print(json.dumps(probe(torch, args.seed, card)), flush=True)
         except SmokeFailure as e:

@@ -25,9 +25,9 @@ from .ref import (flash_attention_bwd, flash_attention_ref, flush_scores_ref,
 class FlashAttention(torch.autograd.Function):
     """Forward: the Hopper flash kernel on CUDA tensors (it launches or
     raises; a remat recompute launches it again), the plain version on CPU
-    tensors. Saves q, k and v. Backward: ``ref.flash_attention_bwd``, f32
-    math in chunks of keys, under the profiler range
-    ``flash_attention_backward``. Under ``torch.no_grad`` it is the forward
+    tensors. Saves q, k, v and the output. Backward:
+    ``ref.flash_attention_bwd``, f32 math in chunks of keys, under the
+    profiler range ``flash_attention_backward``. Under ``torch.no_grad`` it is the forward
     alone, so serving launches the kernel exactly as a direct call."""
 
     @staticmethod
@@ -35,16 +35,16 @@ class FlashAttention(torch.autograd.Function):
         kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         out = (_flash.flash_attention(q, k, v, **kw) if q.is_cuda
                else flash_attention_ref(q, k, v, **kw))
-        ctx.save_for_backward(q, k, v)
+        ctx.save_for_backward(q, k, v, out)
         ctx.kw = kw
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
+        q, k, v, out = ctx.saved_tensors
         with torch.profiler.record_function("flash_attention_backward"):
-            dq, dk, dv = flash_attention_bwd(q, k, v, do, **ctx.kw)
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, do, **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 

@@ -36,77 +36,79 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset
     return o.reshape(b, sq, h, hd).to(q.dtype)
 
 
-def flash_attention_bwd(q, k, v, do, *, causal=True, window=0, softcap=0.0, q_offset=0,
-                        kv_chunk=512):
-    """Gradients (dq, dk, dv) of ``flash_attention_ref`` at (q, k, v) for the
-    output gradient ``do`` (B, Sq, H, hd), in the inputs' dtypes.
+def flash_attention_bwd(q, k, v, out, do, *, causal=True, window=0, softcap=0.0,
+                        q_offset=0, kv_chunk=512):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` at (q, k, v), whose
+    output is ``out``, for the output gradient ``do`` (B, Sq, H, hd), in the
+    inputs' dtypes.
 
     The counterpart of JAX's autodiff of its jnp attention, in f32 math and
-    in chunks of ``kv_chunk`` keys, so no (B, H, Sq, Skv) tensor is held. A
-    first pass recomputes each row's max, its sum and D = sum_j P_ij dP_ij
-    (= do . o) online; a second forms each chunk's P and
+    in chunks of ``kv_chunk`` keys, so no (B, H, Sq, Skv) tensor is held.
+    D = sum_j P_ij dP_ij is rowsum(do * out). A first pass recomputes each
+    row's max and sum online; a second forms each chunk's P and
     dS = P (dP - D) (times the softcap's tanh derivative) and gives the
-    chunk's dk and dv and its share of dq. GQA sums dk/dv over the query heads
-    of a group. Chunks wholly past the last query of a causal mask are
-    skipped. A row with no valid key has output 0 and gets zero gradient."""
+    chunk's dk and dv and its share of dq. The query heads of a group and
+    their rows make one matrix dimension, (B, KV, group x Sq, hd), so every
+    product is one batched matmul and GQA's sum over a group falls out of it.
+    Chunks wholly past the last query of a causal mask are skipped. A row
+    with no valid key has output 0 and gets zero gradient."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
     scale = hd ** -0.5
-    qf = (q.float() * scale).reshape(b, sq, kvh, rep, hd)
-    dof = do.float().reshape(b, sq, kvh, rep, hd)
+
+    def rows(x):    # (B, Sq, H, hd) -> (B, KV, rep x Sq, hd), f32
+        x = x.float().reshape(b, sq, kvh, rep, hd).permute(0, 2, 3, 1, 4)
+        return x.reshape(b, kvh, rep * sq, hd)
+
+    qf, dof = rows(q) * scale, rows(do)
+    dsum = (dof * rows(out)).sum(dim=-1)
+    kf, vf = (x.float().transpose(1, 2).contiguous() for x in (k, v))   # (B, KV, Skv, hd)
     qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
     starts = [c0 for c0 in range(0, skv, kv_chunk)
               if not (causal and c0 > q_offset + sq - 1)]
 
-    def chunk(c0):
-        kc = k[:, c0:c0 + kv_chunk].float()
-        vc = v[:, c0:c0 + kv_chunk].float()
-        s = torch.einsum("bqgrd,bkgd->bgrqk", qf, kc)
+    def scores(c0):
+        kc = kf[:, :, c0:c0 + kv_chunk]
+        s = qf @ kc.transpose(-1, -2)                       # (B, KV, rep x Sq, chunk)
         t = None
         if softcap:
             t = torch.tanh(s / softcap)
             s = softcap * t
-        kpos = c0 + torch.arange(kc.shape[1], device=q.device)[None, :]
-        mask = torch.ones((sq, kc.shape[1]), dtype=torch.bool, device=q.device)
+        kpos = c0 + torch.arange(kc.shape[2], device=q.device)[None, :]
+        mask = torch.ones((sq, kc.shape[2]), dtype=torch.bool, device=q.device)
         if causal:
             mask &= kpos <= qpos
         if window:
             mask &= kpos > qpos - window
-        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-        dp = torch.einsum("bqgrd,bkgd->bgrqk", dof, vc)
-        return kc, s, t, mask, dp
+        s.view(b, kvh, rep, sq, -1).masked_fill_(~mask, NEG_INF)
+        return kc, s, t, mask
 
-    m = torch.full((b, kvh, rep, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    m = torch.full((b, kvh, rep * sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
-    dsum = torch.zeros_like(m)
     valid = torch.zeros((sq,), dtype=torch.bool, device=q.device)
     for c0 in starts:
-        _, s, _, mask, dp = chunk(c0)
+        _, s, _, mask = scores(c0)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        corr = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * corr + p.sum(dim=-1)
-        dsum = dsum * corr + (p * dp).sum(dim=-1)
+        l = l * torch.exp(m - m_new) + s.sub_(m_new[..., None]).exp_().sum(dim=-1)
         m = m_new
         valid |= mask.any(dim=-1)
-    inv_l = torch.where(valid, 1.0 / l.clamp_min(1e-30), torch.zeros_like(l))
-    dsum = dsum * inv_l
+    inv_l = torch.where(valid.repeat(rep), 1.0 / l.clamp_min(1e-30), torch.zeros_like(l))
 
-    dq = torch.zeros((b, sq, kvh, rep, hd), dtype=torch.float32, device=q.device)
-    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
-    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
     for c0 in starts:
-        kc, s, t, _, dp = chunk(c0)
-        p = torch.exp(s - m[..., None]) * inv_l[..., None]
-        dv[:, c0:c0 + kv_chunk] = torch.einsum("bgrqk,bqgrd->bkgd", p, dof)
-        ds = p * (dp - dsum[..., None])
+        kc, s, t, _ = scores(c0)
+        p = s.sub_(m[..., None]).exp_().mul_(inv_l[..., None])
+        dv[:, :, c0:c0 + kv_chunk] = p.transpose(-1, -2) @ dof
+        ds = (dof @ vf[:, :, c0:c0 + kv_chunk].transpose(-1, -2)).sub_(dsum[..., None]).mul_(p)
         if softcap:
-            ds = ds * (1.0 - t * t)
-        dq += torch.einsum("bgrqk,bkgd->bqgrd", ds, kc)
-        dk[:, c0:c0 + kv_chunk] = torch.einsum("bgrqk,bqgrd->bkgd", ds, qf)
-    dq = (dq * scale).reshape(b, sq, h, hd)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+            ds.mul_(1.0 - t * t)
+        dq += ds @ kc
+        dk[:, :, c0:c0 + kv_chunk] = ds.transpose(-1, -2) @ qf
+    dq = (dq * scale).reshape(b, kvh, rep, sq, hd).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
 
 def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *, softcap=0.0):

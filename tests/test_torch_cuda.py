@@ -484,6 +484,7 @@ def test_encdec_and_vision_models_on_card_match_cpu(card, arch):
 GRAD_CASES = [
     # b, sq, skv, h, kv, hd, causal, window, softcap, q_offset
     (2, 512, 512, 32, 4, 64, True, 0, 0.0, 0),      # tinyllama-1.1b heads
+    (2, 1300, 1300, 8, 2, 64, True, 0, 0.0, 0),     # causal over 3 key chunks, ragged
     (1, 256, 256, 8, 8, 64, True, 64, 50.0, 0),     # window and softcap
     (1, 16, 64, 4, 4, 32, True, 0, 0.0, 48),        # q_offset tail
     (2, 64, 192, 4, 1, 128, False, 0, 0.0, 0),      # Sq != Skv, group 4

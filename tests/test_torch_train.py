@@ -124,8 +124,10 @@ def test_flash_function_gradients(name):
     kw = dict(causal=causal, window=window, softcap=softcap)
     q, k, v, do = _attn_inputs(case)
     got = _torch_grads(lambda *t: ops.flash_attention(*t, q_offset=off, **kw), q, k, v, do)
-    chunked = [_np(g) for g in ref.flash_attention_bwd(
-        *(torch.from_numpy(x) for x in (q, k, v, do)), q_offset=off, kv_chunk=7, **kw)]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    out = ref.flash_attention_ref(tq, tk, tv, q_offset=off, **kw)
+    chunked = [_np(g) for g in ref.flash_attention_bwd(tq, tk, tv, out, tdo, q_offset=off,
+                                                       kv_chunk=7, **kw)]
     if name == "empty_rows":
         wants = [_torch_grads(lambda *t: ref.flash_attention_ref(*t, q_offset=off, **kw),
                               q, k, v, do)]
