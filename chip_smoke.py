@@ -115,9 +115,26 @@ last line:
               step, tokens/s, the model-FLOP share, torch.profiler's busy share
               and device ms by flash forward, attention backward, GEMMs and
               optimizer, the peak memory;
- 11. the kernels line (JSON), the device line, and the result line.
+ 11. mesh     the distribution path on the one card, at world 1 (NCCL refuses
+              two ranks on one device): an NCCL group of one over a FileStore
+              under build/ and ``make_host_mesh``'s (1, 1) mesh; tinyllama-1.1b
+              at its published size through ``make_train_step(cfg, mesh)``,
+              params and optimizer state DTensors by ``param_specs``, batch
+              8 x 2,048 by ``make_global_batch``, 2 microbatches, remat, 5
+              steps on phase 10's weights and batches: the losses within
+              1e-5 relative of phase 10's (bitwise or not printed), flash
+              launches through ``local_map`` = the unsharded route's count,
+              the median step beside phase 10's; the int8 error-feedback
+              quantization of its gradient leaves equal to the CPU's (elements
+              differing counted) and one compressed pass timed; olmoe-1b-7b
+              (16 layers, bf16) served with every decode step the paged step's
+              mesh route (``make_paged_decode_step(mesh=)``, the MoE and the
+              paged kernel under ``local_map``), its first step's logits held
+              to the unsharded step's (3e-2 relative L2, replayed routing),
+              the median step beside phase 8's;
+ 12. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each run of phases 4-10
+The kernel launch counts are set to 0 just before each run of phases 4-11
 and read just after, to show each path ran through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
@@ -1068,14 +1085,18 @@ class TimedStep:
     layers take the plain run's experts and weights, so that its logits
     differ by the attention's error alone; the (token, layer) expert sets
     its own router would have picked otherwise are counted (``route_flips``).
-    Its output is the kernel run's; it is not timed."""
+    Its output is the kernel run's; it is not timed. With ``reference``,
+    the first run is that step (phase 11: the unsharded step, with the
+    kernel) in place of the plain-attention run."""
 
-    def __init__(self, torch, step_fn):
+    def __init__(self, torch, step_fn, reference=None):
         self.torch, self.step_fn, self.ms, self.first = torch, step_fn, [], None
+        self.reference = reference    # the first call's reference run, else plain attention
 
     def _first_step(self, args):
         torch = self.torch
         from repro_torch.kernels import ops, ref
+        from repro_torch.kernels import paged_attention as paged_mod
         from repro_torch.models import moe
         kernel_fn, route_fn = ops.paged_attention, moe.route
         calls, routes, plain_routes = [], ([], []), []
@@ -1094,9 +1115,14 @@ class TimedStep:
             return route
 
         try:
-            ops.paged_attention = ref.paged_attention_ref
+            if self.reference is None:
+                ops.paged_attention = ref.paged_attention_ref
             moe.route = recorded(0)
-            plain = self.step_fn(*args)
+            counted = paged_mod.paged_attention
+            counts = (counted.launches, counted.combine_launches, counted.splits)
+            plain = (self.reference or self.step_fn)(*args)
+            # the reference's own launches are a comparison's, not the path's
+            counted.launches, counted.combine_launches, counted.splits = counts
             for a, saved in states:
                 a.copy_(saved)
             del states
@@ -1219,19 +1245,32 @@ def load_model(torch, arch: str, seed: int, layers: int | None = None, tag: str 
 
 
 def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: int = 12,
-                tag: str = "[serve]") -> dict:
+                tag: str = "[serve]", mesh=None) -> dict:
     """``n_req`` requests (prompts of 4-47 tokens, 24 new tokens) through the
     engine at batch 4, page 16, 16 x 4 sets. The first decode step is held to
     plain attention (each paged launch and the logits, ``TimedStep``);
     tokens/s, the median step beside its bound by bytes, the launches, and
-    the device's busy share under torch.profiler."""
+    the device's busy share under torch.profiler.
+
+    With a ``mesh`` (phase 11) every decode step is the mesh route of the
+    paged step (``make_paged_decode_step(mesh=)``, the params DTensors in the
+    serving layout), and its first step is held to the engine's own
+    unsharded step, with the kernel, on the same inputs."""
     from repro_torch.configs import get_config
     from repro_torch.serving import ServeEngine
     from repro_torch.tree import leaves
 
     eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
                       device="cuda")
-    timed = TimedStep(torch, eng.step_fn)
+    if mesh is None:
+        timed = TimedStep(torch, eng.step_fn)
+    else:
+        from repro_torch.distributed import distribute_tree, param_specs
+        from repro_torch.serving.paged_model import make_paged_decode_step
+
+        dparams = distribute_tree(params, param_specs(params, mesh, fsdp=False), mesh)
+        mesh_step = make_paged_decode_step(cfg, page_size=16, mesh=mesh)
+        timed = TimedStep(torch, lambda _, *a: mesh_step(dparams, *a), reference=eng.step_fn)
     eng.step_fn = timed
     rng = np.random.default_rng(seed)
     rids = []
@@ -1263,7 +1302,8 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
     print(f"{tag} first decode step: {first['calls']} paged launches vs plain version on the "
           f"same inputs max_abs_err {first['call_max_abs_err']:.3e} (tol {BF16_TOL:g}), rel L2 "
           f"{first['call_max_rel_l2']:.2e} (tol {PAGED_REL_L2_BF16:g}) "
-          f"{'ok' if first['calls_ok'] else 'FAIL'}; logits with kernel vs with plain attention: "
+          f"{'ok' if first['calls_ok'] else 'FAIL'}; logits "
+          f"{'of the mesh route vs the unsharded step' if mesh else 'with kernel vs with plain attention'}: "
           f"max_abs_err {first['logits_max_abs_err']:.3e}, relative L2 {first['logits_rel_l2']:.3e} "
           f"(tol {BF16_TOL:g}), argmax equal in {first['argmax_equal_rows']}/{first['rows']} rows"
           + (f"; the kernel run's own router would pick another top-{cfg.moe_topk} set in "
@@ -2337,6 +2377,176 @@ def phase_train(torch, seed: int, kernels: dict, card: str) -> dict:
             "flash_launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the mesh path (distribution) at world 1
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 5          # of phase 10's 20, on the same weights and batches
+MESH_LOSS_TOL = 1e-5          # relative, against phase 10's unsharded losses
+MESH_SERVE = ("olmoe-1b-7b", 4)   # arch and requests of the mesh decode (phase 8's traffic)
+
+
+def start_mesh(torch):
+    """An NCCL process group of one over a FileStore under ``build/`` (one
+    card: NCCL refuses two ranks on one device), and ``make_host_mesh``'s
+    (1, 1) mesh over ``data, model``."""
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+
+    store = ROOT / "build" / "chip_smoke_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    init_process_group("cuda", init_method=f"file://{store}", rank=0, world_size=1)
+    return make_host_mesh("cuda")
+
+
+def quantize_check(torch, grads, card: str) -> dict:
+    """``collectives._quantize`` / ``_dequantize`` on the card over every
+    gradient leaf (as ``_ef_leaf`` rows them): the int8 payloads and f32
+    scales against the CPU's on the same values, differing elements counted
+    (expected 0); then the device ms of one compressed pass (each leaf plus
+    its residual, quantized, the new residual written) over all leaves,
+    beside its bound by bytes."""
+    from repro_torch.distributed.collectives import _dequantize, _quantize
+    from repro_torch.distributed.sharding import local_part
+    from repro_torch.tree import leaves
+
+    rows = []
+    for g in leaves(grads):
+        x = local_part(g).float()
+        rows.append(x.reshape(-1, x.shape[-1]) if x.dim() > 1 else x.reshape(1, -1))
+    q_diff = s_diff = elems = 0
+    for flat in rows:
+        q, sc = _quantize(flat)
+        qc, scc = _quantize(flat.cpu())
+        q_diff += int((q.cpu() != qc).sum())
+        s_diff += int((sc.cpu() != scc).sum())
+        elems += q.numel()
+        del q, sc, qc, scc
+    res = [torch.zeros_like(f) for f in rows]
+
+    def one_pass(_):
+        for flat, r in zip(rows, res):
+            x = flat + r
+            q, sc = _quantize(x)
+            r.copy_(x - _dequantize(q, sc))
+
+    ms = time_ms(torch, one_pass, 3)
+    # each leaf and residual read once, payload, scales and residual written once
+    nbytes = sum(f.numel() * (4 + 4 + 1 + 4) + f.shape[0] * 4 for f in rows)
+    out = {"leaves": len(rows), "elements": elems, "payload_differ": q_diff,
+           "scales_differ": s_diff, "pass_ms": ms, "bytes": nbytes,
+           "bound_ms": nbytes / hbm_bytes_per_s(card) * 1e3}
+    print(f"[mesh] int8 error-feedback quantization over {len(rows)} gradient leaves "
+          f"({elems:,} elements): payloads differing from the CPU's {q_diff}, scales {s_diff} "
+          f"(expected 0); one compressed pass {ms:.3f} ms, bound {out['bound_ms']:.3f} ms by "
+          f"bytes ({nbytes / 1e9:.2f} GB) on {card}", flush=True)
+    check(q_diff == 0 and s_diff == 0, "mesh: the card's int8 quantization differs from the CPU's")
+    del rows, res
+    return out
+
+
+def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict) -> dict:
+    """tinyllama-1.1b at its published size through the mesh route: params
+    and optimizer state DTensors placed by ``param_specs``, the batch by
+    ``make_global_batch`` with ``data_spec``, ``make_train_step(cfg, mesh)``
+    with remat and 2 microbatches, ``MESH_TRAIN_STEPS`` steps on phase 10's
+    weights and batches; the losses held to phase 10's (``unsharded``),
+    the flash launches (through ``local_map``) to the unsharded route's
+    count; then one gradient for ``quantize_check``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.distributed import data_spec, distribute_tree, param_specs
+    from repro_torch.launch.steps import make_grad_fn, make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config("tinyllama-1.1b")
+    b, s, mb = TRAIN_FULL_SHAPE
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    params = distribute_tree(params, param_specs(params, mesh), mesh)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, mesh, remat=True, microbatches=mb, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(cfg.vocab, s, b, seed=seed)
+    dspec = data_spec(mesh, b)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    zero_launches(kernels)
+    for i in range(MESH_TRAIN_STEPS):
+        batch = make_global_batch(data.batch(i), mesh, dspec, "cuda")
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["ce"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(kernels)
+    designs = read_designs(kernels)["flash_attention"]
+    grads, _ = make_grad_fn(cfg, mesh, remat=True, microbatches=mb)(
+        params, make_global_batch(data.batch(MESH_TRAIN_STEPS), mesh, dspec, "cuda"))
+    del params, opt
+    free_memory(torch)
+    quant = quantize_check(torch, grads, card)
+    del grads
+    free_memory(torch)
+
+    want = unsharded["losses"][:MESH_TRAIN_STEPS]
+    rel = max(abs(a - w) / abs(w) for a, w in zip(losses, want))
+    expected = cfg.n_layers * 2 * mb * MESH_TRAIN_STEPS
+    median = statistics.median(ms[1:])
+    res = {"arch": cfg.name, "batch": b, "seq": s, "microbatches": mb, "steps": MESH_TRAIN_STEPS,
+           "losses": losses, "unsharded_losses": want, "max_rel": rel, "bitwise": losses == want,
+           "step_ms": ms, "median_step_ms": median,
+           "unsharded_median_step_ms": unsharded["median_step_ms"],
+           "flash_launches": launches["flash_attention"], "flash_expected": expected,
+           "designs": designs, "quantize": quant, "card": card}
+    print(f"[mesh] {cfg.name} full size on the (1, 1) mesh, params and optimizer state DTensors "
+          f"by param_specs, batch {b} x {s} by make_global_batch, {mb} microbatches, remat: "
+          f"losses {', '.join(f'{x:.6f}' for x in losses)} vs phase 10's "
+          f"{', '.join(f'{x:.6f}' for x in want)}: max rel {rel:.2e} (tol {MESH_LOSS_TOL:g}), "
+          f"bitwise {res['bitwise']}; flash launches through local_map "
+          f"{launches['flash_attention']} {designs} (the unsharded route's count {expected})",
+          flush=True)
+    print(f"[mesh] median step {median:.1f} ms (steps 1-{MESH_TRAIN_STEPS - 1}) vs phase 10's "
+          f"unsharded {unsharded['median_step_ms']:.1f} ms: the difference is DTensor dispatch "
+          f"on the host, on {card}", flush=True)
+    check(all(np.isfinite(losses)), "mesh: a loss is not finite")
+    check(rel <= MESH_LOSS_TOL, "mesh: the mesh route's losses differ from phase 10's")
+    check(launches["flash_attention"] == expected and designs["wgmma"] == expected,
+          f"mesh: {designs} flash launches, expected {expected} wgmma")
+    return res
+
+
+def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict,
+               unsharded_serve: dict) -> dict:
+    """Phase 11: the mesh path at world 1 (one card). (a) an NCCL group of
+    one and ``make_host_mesh``; (b) ``mesh_train``; (c) olmoe-1b-7b's paged
+    decode step with ``mesh=`` (the MoE through ``local_map``) under the
+    serve traffic, its first step held to the unsharded step's logits
+    (``BF16_TOL`` relative L2, replayed routing), the median step beside
+    phase 8's; (d) in ``mesh_train``, the int8 quantization. The group is
+    ended before it returns."""
+    import torch.distributed as dist
+
+    mesh = start_mesh(torch)
+    try:
+        print(f"[mesh] process group: {dist.get_backend()} world {dist.get_world_size()}, "
+              f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {card}", flush=True)
+        train = mesh_train(torch, mesh, seed, kernels, card, unsharded_train)
+        arch, n_req = MESH_SERVE
+        cfg, params = load_model(torch, arch, seed, tag="[mesh]")
+        serve = phase_serve(torch, cfg, params, seed, kernels, card, n_req,
+                            tag=f"[mesh] {arch}", mesh=mesh)
+        del params
+        free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] {arch} decode, mesh route: median step {serve['median_step_ms']:.2f} ms vs "
+          f"phase 8's unsharded {unsharded_serve['median_step_ms']:.2f} ms; paged launches "
+          f"{serve['launches']['paged_attention']} through local_map on {card}", flush=True)
+    # flash through local_map: the train steps' (the engine's prefill is unsharded)
+    return {"train": train, "serve": serve, "launches": {
+        "flash_attention": train["flash_launches"],
+        "paged_attention": serve["launches"]["paged_attention"]}}
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of each function in an nvcc ``-Xptxas -v`` log."""
     funcs, cur = {}, None
@@ -2461,6 +2671,9 @@ def main() -> int:
         encdec = phase_encdec_vision(torch, args.seed, kernels, card)
         # 10. training
         train = phase_train(torch, args.seed, kernels, card)
+        # 11. the mesh path
+        mesh = phase_mesh(torch, args.seed, kernels, card, train["full"],
+                          families[MESH_SERVE[0]])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2494,7 +2707,8 @@ def main() -> int:
          "prefill_phase_launches": prefill["launches"]["paged_attention"],
          "prefill_decode_step_median_ms": prefill["decode_step_median_ms"],
          "prefill_decode_paged_device_ms_per_step": prefill["decode_paged_device_ms_per_step"],
-         **family_launches("paged_attention")},
+         **family_launches("paged_attention"),
+         "mesh_phase_launches": mesh["launches"]["paged_attention"]},
         {**common, "name": "flash_attention",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
@@ -2509,7 +2723,8 @@ def main() -> int:
          "serve_phase_launches": serve["launches"]["flash_attention"],
          "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"],
          **family_launches("flash_attention"),
-         "train_phase_launches": train["flash_launches"]},
+         "train_phase_launches": train["flash_launches"],
+         "mesh_phase_launches": mesh["launches"]["flash_attention"]},
         {**common, "name": "flush_scores",
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
@@ -2527,7 +2742,7 @@ def main() -> int:
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
          "prefill": prefill, "families": families, "encdec_vision": encdec,
          "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families,
-         "train": train},
+         "train": train, "mesh": mesh},
         indent=1, default=str))
     print(json.dumps(line))
     print(smi)

@@ -29,7 +29,12 @@ are JAX's ``tree_flatten_with_path`` strings (``flatten_with_paths``), and
 bf16 leaves are written as JAX's ``np.save`` writes them, their 16 bits
 under the header ``'descr': '<V2'``. Restore casts each chunk to the dtype
 and device of the leaf it replaces (a ``|V2`` chunk into a bf16 leaf).
-There is no mesh to re-shard onto until the port's distribution.
+
+A tree of DTensors is saved whole: every rank gathers each leaf
+(``full_tensor``, a collective) and only rank 0 writes the chunks and the
+manifest. ``restore`` reads whole leaves and places them onto a mesh, that
+of ``like``'s DTensors or the one ``shardings`` names, so a checkpoint
+restores onto another mesh than the one that saved it, or onto none.
 """
 from __future__ import annotations
 
@@ -41,8 +46,11 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.core.io_queues import HIGH, LOW, IOExecutor, IORequest
+from repro_torch.distributed.sharding import placements
 from repro_torch.tree import flatten_with_paths, map_with_path
 
 BF16_BITS = np.dtype("V2")          # a bf16 leaf on the host: its 16 bits, unnamed
@@ -50,17 +58,22 @@ BF16_BITS = np.dtype("V2")          # a bf16 leaf on the host: its 16 bits, unna
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """A copy of ``t`` in host memory, as numpy: bf16 as its bits viewed
-    ``V2`` (numpy has no bf16), anything else in its own dtype."""
+    ``V2`` (numpy has no bf16), anything else in its own dtype. A DTensor
+    is gathered whole first (a collective: every rank of its mesh calls)."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy().view(BF16_BITS)
     return t.to("cpu", copy=True).numpy()
 
 
-def from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+def from_host(a: np.ndarray, like: torch.Tensor, sharding=None) -> torch.Tensor:
     """The chunk ``a`` as a tensor of ``like``'s dtype and device; a ``V2``
     chunk (bf16 bits) goes into a bf16 leaf. Any other dtype or shape that
-    differs from ``like``'s raises."""
+    differs from ``like``'s raises. ``sharding`` = (mesh, PartitionSpec)
+    makes it a DTensor so placed; else a DTensor ``like`` gives its own mesh
+    and placements. Every rank holds the whole chunk and keeps its slice."""
     if tuple(a.shape) != tuple(like.shape):
         raise ValueError(f"checkpoint chunk of shape {a.shape} for a leaf of shape "
                          f"{tuple(like.shape)}")
@@ -71,7 +84,13 @@ def from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
         if t.dtype != like.dtype:
             raise TypeError(f"checkpoint chunk of dtype {a.dtype} for a leaf of dtype "
                             f"{like.dtype}")
-    return t.to(like.device)
+    t = t.to(like.device)
+    if sharding is not None:
+        mesh, spec = sharding
+        return distribute_tensor(t, mesh, placements(spec, mesh), src_data_rank=None)
+    if isinstance(like, DTensor):
+        return distribute_tensor(t, like.device_mesh, like.placements, src_data_rank=None)
+    return t
 
 
 def save_chunk(path: Path, a: np.ndarray) -> None:
@@ -107,6 +126,8 @@ class CheckpointManager:
                       "saves": 0, "restores": 0}
         self._exec = IOExecutor(n_targets, self._do_io,
                                 max_inflight=max_inflight, reserved=reserved)
+        # in a process group, rank 0 alone writes (every rank gathers)
+        self._writer = not dist.is_initialized() or dist.get_rank() == 0
 
     # ------------------------------------------------------------------ io
     def _chunk_path(self, key: str, step: int) -> Path:
@@ -156,12 +177,18 @@ class CheckpointManager:
 
         ``changed`` optionally names the dirty chunks (default: all) — the
         dirty-chunk filter for e.g. frozen towers or unchanged EMA copies.
+        In a process group every rank calls it (the gather of a DTensor leaf
+        is a collective) and rank 0 alone writes.
         """
+        flat = flatten_with_paths(tree)
         with self._lock:
-            if step in self._remaining or step in self._committed:
-                return                       # duplicate save for this step
-        host = {k: to_host(v) for k, v in flatten_with_paths(tree).items()
-                if changed is None or k in changed}
+            duplicate = step in self._remaining or step in self._committed
+        # every rank gathers a sharded tree, so that all join each gather
+        if duplicate and not any(isinstance(v, DTensor) for v in flat.values()):
+            return
+        host = {k: to_host(v) for k, v in flat.items() if changed is None or k in changed}
+        if duplicate or not self._writer:
+            return
         with self._lock:
             self.stats["saves"] += 1
             self._remaining[step] = len(host)
@@ -202,10 +229,15 @@ class CheckpointManager:
                        for p in self.dir.glob("manifest-*.json"))
         return steps[-1] if steps else None
 
-    def restore(self, like: Any, step: int | None = None) -> tuple[int, Any]:
+    def restore(self, like: Any, step: int | None = None, shardings: Any = None,
+                mesh=None) -> tuple[int, Any]:
         """Blocking restore into the structure of ``like`` (a tree of
         tensors), each leaf in the dtype and on the device of ``like``'s.
-        Reads are HIGH priority: they overtake any write backlog."""
+        Reads are HIGH priority: they overtake any write backlog.
+        ``shardings`` (a tree of ``PartitionSpec`` like ``like``, with
+        ``mesh``) places each whole leaf onto ``mesh``, whatever mesh
+        saved it (JAX's elastic resume); without it a DTensor leaf of
+        ``like`` gives its own placements."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -222,7 +254,10 @@ class CheckpointManager:
         for _ in manifest["keys"]:
             sem.acquire()
         self.stats["restores"] += 1
-        return step, map_with_path(lambda key, leaf: from_host(out[key], leaf), like)
+        specs = {} if shardings is None else flatten_with_paths(shardings)
+        return step, map_with_path(
+            lambda key, leaf: from_host(out[key], leaf,
+                                        (mesh, specs[key]) if key in specs else None), like)
 
     # ------------------------------------------------------------- control
     def barrier(self, timeout: float = 120.0) -> bool:

@@ -1,3 +1,3 @@
-from .pipeline import Prefetcher, SyntheticLM, to_device
+from .pipeline import Prefetcher, SyntheticLM, make_global_batch, to_device
 
-__all__ = ["Prefetcher", "SyntheticLM", "to_device"]
+__all__ = ["Prefetcher", "SyntheticLM", "make_global_batch", "to_device"]

@@ -9,9 +9,9 @@ produces batches in the background while the step runs.
 Tokens are deterministic functions of (seed, step) — restart-reproducible,
 no files — drawn from a Zipfian unigram over the vocab with a Markov-ish
 second-gram mix so the loss has learnable structure. ``SyntheticLM`` and
-``Prefetcher`` are numpy and threads, copied unchanged. JAX's
-``make_global_batch`` (host numpy to arrays sharded over a mesh) becomes
-``to_device``: there is no mesh until the port's distribution.
+``Prefetcher`` are numpy and threads, copied unchanged. ``to_device`` puts
+a host batch on one device; ``make_global_batch`` (JAX's, host numpy to
+arrays sharded over a mesh) makes DTensors of it.
 """
 from __future__ import annotations
 
@@ -22,6 +22,9 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.distributed.tensor import distribute_tensor
+
+from repro_torch.distributed.sharding import PartitionSpec, placements
 
 
 @dataclass
@@ -72,6 +75,21 @@ def to_device(batch: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
         out[k] = (t.pin_memory().to(device, non_blocking=True) if device.type == "cuda"
                   else t.to(device))
     return out
+
+
+def make_global_batch(batch: dict[str, np.ndarray], mesh, spec, device) -> dict:
+    """Host numpy -> DTensors on ``mesh``, dim 0 placed by ``spec`` (a
+    ``PartitionSpec`` such as ``data_spec(mesh, batch)``; its first entry
+    only, the other dims replicated, as JAX's train driver passes
+    ``P(dspec[0], None)``). Every rank holds the whole global batch (drawn
+    from one seed) and keeps its own rows, with no communication."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import PartitionSpec, placements
+
+    pl = placements(PartitionSpec(spec[0] if len(spec) else None), mesh)
+    return {k: distribute_tensor(t, mesh, pl, src_data_rank=None)
+            for k, t in to_device(batch, device).items()}
 
 
 class Prefetcher:

@@ -1,11 +1,18 @@
 """End-to-end training, the twin of ``repro/launch/train.py``.
 
-Wires together the prefetched synthetic data, the train step (forward with
-remat, chunked loss, AdamW with an f32 master copy), the async checkpoints
-(the paper's flusher queues) and restart/resume.
+Wires together the prefetched synthetic data, the mesh and the sharding
+rules (params and optimizer state placed by ``param_specs``, the batch by
+``data_spec``), the train step (forward with remat, chunked loss, AdamW
+with an f32 master copy), the async checkpoints (the paper's flusher
+queues) and restart/resume.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --preset smoke --steps 50 --batch 8 --seq 128 --ckpt-dir build/ckpt
+
+It runs at world 1 by default (a process group of one over a local store),
+and at world N under ``torchrun --nproc-per-node N`` (nccl on cards, gloo
+on the CPU) or in processes whose caller has started the group: the mesh is
+``(world, 1)`` over ``data, model`` (``make_host_mesh``), and rank 0 prints.
 
 ``--preset smoke`` trains the reduced config (CPU-sized), ``full`` the
 published one (tinyllama-1.1b: 1.1B parameters in bf16 with an f32 master
@@ -23,14 +30,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data import Prefetcher, SyntheticLM, to_device
+from repro_torch.data import Prefetcher, SyntheticLM, make_global_batch
+from repro_torch.distributed import data_spec, distribute_tree, param_specs
+from repro_torch.distributed.sharding import P, replicate
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.transformer import init_params
-from repro_torch.optim import adamw_init
+from repro_torch.optim import AdamWState, adamw_init
 from repro_torch.serving.engine import resolve_device
 
 
@@ -69,12 +80,29 @@ def modality_stubs(raw: dict, cfg: ModelConfig, batch: int, seq: int, seed: int,
     return raw
 
 
+def opt_specs(opt: AdamWState, p_specs) -> AdamWState:
+    """The optimizer state's specs: m, v and master by the params', step
+    replicated."""
+    return AdamWState(step=P(), m=p_specs, v=p_specs,
+                      master=p_specs if opt.master is not None else None)
+
+
 def train(cfg: ModelConfig, args: argparse.Namespace) -> list[float]:
-    """Train ``cfg`` as ``args`` (``parser()``'s flags) say; the ce losses."""
+    """Train ``cfg`` as ``args`` (``parser()``'s flags) say; the ce losses.
+    Every rank draws the same weights and batches from ``--seed`` and keeps
+    its own shards of them. A process group it starts itself (world 1) it
+    also ends."""
     device = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    mesh = make_host_mesh(device)
+    main_rank = dist.get_rank() == 0
+    log = print if main_rank else (lambda *a, **k: None)
     params = init_params(cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    p_specs = param_specs(params, mesh)
+    params = distribute_tree(params, p_specs, mesh)
     opt = adamw_init(params)
-    step_fn = make_train_step(cfg, peak_lr=args.lr, total_steps=args.steps,
+    opt = opt._replace(step=replicate(opt.step, mesh))
+    step_fn = make_train_step(cfg, mesh, peak_lr=args.lr, total_steps=args.steps,
                               microbatches=args.microbatches)
 
     ckpt = None
@@ -82,11 +110,13 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> list[float]:
     if args.ckpt_dir:
         ckpt = CheckpointManager(args.ckpt_dir)
         if args.resume and ckpt.latest_step() is not None:
-            start_step, (params, opt) = ckpt.restore((params, opt))
+            start_step, (params, opt) = ckpt.restore(
+                (params, opt), shardings=(p_specs, opt_specs(opt, p_specs)), mesh=mesh)
             start_step += 1
-            print(f"resumed from step {start_step - 1}")
+            log(f"resumed from step {start_step - 1}")
 
     data = SyntheticLM(cfg.vocab, args.seq, args.batch, seed=args.seed)
+    dspec = data_spec(mesh, args.batch)
     it = Prefetcher(({"step": s, **data.batch(s)} for s in range(start_step, args.steps)),
                     depth=4)
     t0 = time.time()
@@ -95,27 +125,30 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> list[float]:
         for raw in it:
             s = raw.pop("step")
             raw = modality_stubs(raw, cfg, args.batch, args.seq, args.seed, s)
-            params, opt, metrics = step_fn(params, opt, to_device(raw, device))
+            batch = make_global_batch(raw, mesh, dspec, device)
+            params, opt, metrics = step_fn(params, opt, batch)
             losses.append(float(metrics["ce"]))
             if ckpt and (s + 1) % args.ckpt_every == 0:
                 ckpt.save_async(s, (params, opt))
             if (s + 1) % args.log_every == 0 or s == args.steps - 1:
                 dt = time.time() - t0
                 tok_s = (s - start_step + 1) * args.batch * args.seq / max(dt, 1e-9)
-                print(f"step {s + 1:5d}  ce={losses[-1]:.4f}  "
-                      f"gnorm={float(metrics['grad_norm']):.3f}  "
-                      f"lr={float(metrics['lr']):.2e}  tok/s={tok_s:,.0f}")
+                log(f"step {s + 1:5d}  ce={losses[-1]:.4f}  "
+                    f"gnorm={float(metrics['grad_norm']):.3f}  "
+                    f"lr={float(metrics['lr']):.2e}  tok/s={tok_s:,.0f}")
         if ckpt:
             ckpt.save_async(args.steps - 1, (params, opt))
             ckpt.drain()
-            print("ckpt stats:", ckpt.stats)
+            log("ckpt stats:", ckpt.stats)
     finally:
         it.close()
         if ckpt:
             ckpt.close()
+        if own_group:
+            dist.destroy_process_group()
     if len(losses) > 10:
         a, b = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        print(f"loss first5={a:.4f} last5={b:.4f} ({'DOWN' if b < a else 'UP'})")
+        log(f"loss first5={a:.4f} last5={b:.4f} ({'DOWN' if b < a else 'UP'})")
     return losses
 
 

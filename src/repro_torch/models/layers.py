@@ -15,11 +15,18 @@ Conventions:
 """
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (P, contiguous_grad, dp_axes, dp_size, placements,
+                                              replicate)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import mesh_shape
 
 NEG_INF = -1e30
 
@@ -185,10 +192,53 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int, softcap: float,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
+def _attend(q, k, v, *, causal: bool, window: int, softcap: float, q_offset: int,
+            dense_threshold: int) -> torch.Tensor:
+    """The attention core on plain tensors: the Hopper flash kernel on the
+    card, the dense or chunked plain version on the CPU."""
+    if q.is_cuda:
+        return ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal, window=window, softcap=softcap,
+                                   q_offset=q_offset)
+    if max(q.shape[1], k.shape[1]) > dense_threshold:
+        return _chunked_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    return _dense_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                            q_offset=q_offset)
+
+
+def head_placements(mesh, batch: int | None, kv_heads: int) -> list:
+    """Placements of a (B, S, heads, hd) tensor on ``mesh``: the batch over
+    the data-parallel axes where they divide it (``batch`` None: replicated),
+    the heads over ``model`` where it divides the KV heads (GQA's groups stay
+    whole on a card), else replicated, as ``_fix_divisibility`` leaves
+    them."""
+    dp = batch is not None and batch % dp_size(mesh) == 0
+    tp = kv_heads % mesh_shape(mesh)["model"] == 0
+    return placements(P(dp_axes(mesh) if dp else None, None, "model" if tp else None, None),
+                      mesh)
+
+
+def local_kv_heads(kv_heads: int, mesh) -> int:
+    """KV heads a rank's cache or page pool holds: its share over ``model``
+    where that divides them (``head_placements``), else all of them."""
+    if mesh is None:
+        return kv_heads
+    tp = mesh_shape(mesh)["model"]
+    return kv_heads // tp if kv_heads % tp == 0 else kv_heads
+
+
+def local_heads(x, mesh, kv_heads: int):
+    """This rank's heads of a (B, S, heads, hd) DTensor, every batch row, as
+    a plain tensor (a cache write's operand); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(mesh, head_placements(mesh, None, kv_heads)).to_local()
+
+
 def multihead_attention(x, params, cfg: ModelConfig, *, positions,
                         window: int = 0, causal: bool = True,
                         kv_override=None, q_offset: int = 0,
-                        dense_threshold: int | None = None) -> torch.Tensor:
+                        dense_threshold: int | None = None, mesh=None) -> torch.Tensor:
     """Full self-attention over x (B, S, D), or cross-attention with
     ``kv_override=(k, v)``: Q is projected from x, K/V (B, Skv, KV, hd) come
     from the override and get no k-norm and no rope.
@@ -197,7 +247,12 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
     (``ops.flash_attention``, Sq and Skv as they come), the counterpart of
     both ``_dense_attention`` and ``_chunked_attention`` (f32 math
     throughout, as the Pallas kernel). On the CPU the JAX rule holds: dense
-    while ``max(Sq, Skv)`` is at most ``dense_threshold``, chunked past it."""
+    while ``max(Sq, Skv)`` is at most ``dense_threshold``, chunked past it.
+
+    With a ``mesh`` and DTensor activations the core runs under
+    ``local_map`` on each card's batch rows and heads (``head_placements``):
+    the kernel sees plain local tensors, and its gradient flows back through
+    ``local_map``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, h, hd)
@@ -213,19 +268,17 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
     if cfg.rope_theta and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    skv = k.shape[1]
-    if dense_threshold is None:
-        dense_threshold = cfg.attn_dense_threshold
-    if q.is_cuda:
-        out = ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                  causal=causal, window=window, softcap=cfg.attn_softcap,
-                                  q_offset=q_offset)
-    elif max(s, skv) > dense_threshold:
-        out = _chunked_attention(q, k, v, causal=causal, window=window,
-                                 softcap=cfg.attn_softcap)
-    else:
-        out = _dense_attention(q, k, v, causal=causal, window=window,
-                               softcap=cfg.attn_softcap, q_offset=q_offset)
+    attend = partial(_attend, causal=causal, window=window, softcap=cfg.attn_softcap,
+                     q_offset=q_offset, dense_threshold=(cfg.attn_dense_threshold
+                                                         if dense_threshold is None
+                                                         else dense_threshold))
+    if mesh is not None and isinstance(q, DTensor):
+        pl = head_placements(mesh, b, kvh)
+        k, v = replicate(k, mesh), replicate(v, mesh)
+        core = attend
+        attend = local_map(lambda *qkv: core(*map(contiguous_grad, qkv)), out_placements=pl,
+                           in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
+    out = attend(q, k, v)
     return out.reshape(b, s, h * hd) @ params["wo"]
 
 

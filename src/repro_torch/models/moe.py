@@ -7,15 +7,24 @@ over ``(E, cap, d)``, and the combine gathers each kept assignment's row back.
 Every expert's buffer is computed whatever its fill, as in JAX, so a decode
 step reads every expert's weights.
 
-Only the local path is ported: ``moe_ffn`` with a mesh (the JAX
-``shard_map`` expert- and tensor-parallel paths) raises.
+Over a mesh, ``moe_ffn`` runs ``moe_local`` under ``local_map`` (JAX's
+``shard_map``): expert parallelism ships each expert's rows to the rank
+that owns it with an all-to-all over ``data``; tensor parallelism sums the
+d_ff shards' outputs over ``model`` after the token combine.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (experts_to_owners, pmean, psum,
+                                                 rows_to_sources, scale_grad)
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import P, placements, replicate, replicated, whole
+from repro_torch.launch.mesh import mesh_shape
 from .layers import init_normal
 
 
@@ -40,9 +49,11 @@ def _capacity(tokens: int, cfg: ModelConfig, factor: float | None = None) -> int
     return max(8, -(-c // 8) * 8)
 
 
-def route(x, params, cfg: ModelConfig):
+def route(x, params, cfg: ModelConfig, stats_groups=()):
     """Router of ``moe_local``. x: (T, d). Returns the renormalised top-k
-    weights (T, k) f32, the expert ids (T, k) and the aux losses."""
+    weights (T, k) f32, the expert ids (T, k) and the aux losses, their
+    statistics averaged over ``stats_groups`` (the axes that shard the
+    tokens), so that the losses are those of all the tokens."""
     e, k_top = cfg.moe_experts, cfg.moe_topk
     logits = x.float() @ params["router"]                             # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -50,9 +61,10 @@ def route(x, params, cfg: ModelConfig):
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=0)                                            # (E,)
     ce = F.one_hot(idx, e).float().sum(1).mean(dim=0) / k_top
-    aux = {"lb": e * torch.sum(me * ce),
-           "z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2)}
-    return w, idx, aux
+    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    if stats_groups:
+        me, ce, z = (pmean(t, stats_groups) for t in (me, ce, z))
+    return w, idx, {"lb": e * torch.sum(me * ce), "z": z}
 
 
 def dispatch(idx, n_experts: int, cap: int):
@@ -66,13 +78,19 @@ def dispatch(idx, n_experts: int, cap: int):
     return keep, torch.where(keep, e_flat * cap + pos, n_experts * cap)
 
 
-def moe_local(x, params, cfg: ModelConfig, *, capacity_factor: float | None = None):
-    """x: (B, S, d). Returns (y (B, S, d), {"lb", "z"})."""
+def moe_local(x, params, cfg: ModelConfig, *, ep_group=None, tp_group=None, ep_size: int = 1,
+              capacity_factor: float | None = None, stats_group=()):
+    """Per-shard MoE math. x: (B, S, d) local. Returns (y (B, S, d), {"lb",
+    "z"}). With ``ep_group`` (``ep_size`` ranks, each holding E/ep_size
+    experts) the (E, C, d) buffer goes to the experts' owners as (E/ep,
+    C*ep, d) and back; with ``tp_group`` (each rank a d_ff slice of its
+    experts) the combined (T, d) output is summed over it; the aux losses'
+    statistics are averaged over ``stats_group`` (a tuple of groups)."""
     b, s, d = x.shape
     e, k_top = cfg.moe_experts, cfg.moe_topk
     t = b * s
     xf = x.reshape(t, d)
-    w, idx, aux = route(xf, params, cfg)
+    w, idx, aux = route(xf, params, cfg, stats_group)
 
     cap = _capacity(t, cfg, capacity_factor)
     keep, dest = dispatch(idx, e, cap)
@@ -83,20 +101,95 @@ def moe_local(x, params, cfg: ModelConfig, *, capacity_factor: float | None = No
 
     x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
     xg = x_pad[buf].reshape(e, cap, d)                                # (E, C, d)
+    ep = ep_group is not None and ep_size > 1
+    if ep:
+        xg = experts_to_owners(xg, ep_group, ep_size)                # (E/D, C*D, d)
     act = F.silu if cfg.act == "silu" else (lambda v: F.gelu(v, approximate="tanh"))
     h = act(torch.bmm(xg, params["w_gate"])) * torch.bmm(xg, params["w_up"])
-    y = torch.bmm(h, params["w_down"]).reshape(e * cap, d)
+    y = torch.bmm(h, params["w_down"])
+    if ep:
+        y = rows_to_sources(y, ep_group, ep_size)                     # (E, C, d)
+    y = y.reshape(e * cap, d)
 
     out_tk = y[torch.where(keep, dest, 0)]                           # (T*K, d)
     out_tk = torch.where(keep[:, None], out_tk, out_tk.new_zeros(()))
     out = (out_tk.reshape(t, k_top, d) * w[..., None].to(y.dtype)).sum(dim=1)
+    if tp_group is not None:
+        # after the token combine: a (T, d) sum, not the (E, C, d) buffer's
+        out = psum(out, (tp_group,))
     return out.reshape(b, s, d).to(x.dtype), aux
 
 
-def moe_ffn(x, params, cfg: ModelConfig, mesh=None):
-    """MoE FFN. x: (B, S, d). The JAX ``shard_map`` paths over a mesh are
-    not ported: a mesh raises."""
-    if mesh is not None:
-        raise NotImplementedError("moe_ffn over a mesh (expert/tensor parallel) is not "
-                                  "ported yet: it comes with the distribution slice")
-    return moe_local(x, params, cfg)
+def _grad_placements(spec, mesh) -> list:
+    """``shard_map``'s transpose of a replicated input: the ranks' cotangents
+    are summed, so each replicated mesh dim of the input takes ``Partial``."""
+    return [Partial() if isinstance(pl, Replicate) else pl for pl in placements(spec, mesh)]
+
+
+def moe_ffn(x, params, cfg: ModelConfig, mesh=None, dp_axes: tuple[str, ...] | None = None,
+            ep_axis: str = "data", tp_axis: str = "model"):
+    """MoE FFN. x: (B, S, d). Returns (y, {"lb", "z"}).
+
+    With a ``mesh`` (a ``DeviceMesh`` with named dims) it follows JAX's
+    modes under ``local_map``: "tp" (``cfg.moe_parallel``) gives every rank
+    a d_ff/TP slice of every expert and its own tokens, one (T, d) sum over
+    ``model``; "ep" gives each rank E/D experts (all-to-all over ``data``)
+    and sums d_ff over ``model`` where TP > 1. "tp" falls back to "ep" when
+    TP is 1 or does not divide ``moe_d_ff``; EP falls back to 1 when D does
+    not divide E. A batch the data-parallel axes do not divide takes the
+    local math on every rank (all of it replicated). Plain ``x`` and params
+    count as replicated, and then y and the losses come back plain."""
+    sizes = {} if mesh is None else mesh_shape(mesh)
+    if ep_axis not in sizes:
+        return moe_local(x, params, cfg)
+    plain = not isinstance(x, DTensor)
+    x = replicate(x, mesh)
+    params = {k: replicate(v, mesh) for k, v in params.items()}
+    dp_axes = dp_axes or sharding.dp_axes(mesh)
+    dp_n = 1
+    for a in dp_axes:
+        dp_n *= sizes[a]
+    n_all = 1
+    for n in sizes.values():
+        n_all *= n
+    keys = ("router", "w_gate", "w_up", "w_down")
+    if x.shape[0] % dp_n != 0:
+        # a batch too small to shard (single-sequence decode): every rank
+        # runs the whole of it, as GSPMD's plain path
+        y, aux = replicated(moe_local, mesh, x, params, cfg)
+        return (whole(y), {k: whole(v) for k, v in aux.items()}) if plain else (y, aux)
+    tp_size = sizes.get(tp_axis, 1)
+    mode = cfg.moe_parallel
+    if mode == "tp" and (tp_size <= 1 or cfg.moe_d_ff % tp_size != 0):
+        mode = "ep"
+    ep_size = sizes[ep_axis]
+    if cfg.moe_experts % ep_size != 0:
+        ep_size = 1   # pure TP when E doesn't divide the axis
+    ep_size = ep_size if mode == "ep" else 1
+    ep_ax = ep_axis if ep_size > 1 else None
+    tp_ax = tp_axis if tp_size > 1 else None
+    specs = {"x": P(dp_axes, None, None), "router": P(),
+             "w_gate": P(ep_ax, None, tp_axis), "w_up": P(ep_ax, None, tp_axis),
+             "w_down": P(ep_ax, tp_axis, None)}
+    groups = {a: mesh.get_group(a) for a in sizes}
+    out_scale = n_all / dp_n          # an output replicated over the non-dp ranks
+
+    def fn(xl, router, w_gate, w_up, w_down):
+        y, aux = moe_local(xl, {"router": router, "w_gate": w_gate, "w_up": w_up,
+                                "w_down": w_down}, cfg,
+                           ep_group=groups[ep_ax] if ep_ax else None,
+                           tp_group=groups[tp_ax] if tp_ax else None, ep_size=ep_size,
+                           stats_group=tuple(groups[a] for a in dp_axes))
+        return (scale_grad(y, 1 / out_scale), scale_grad(aux["lb"], 1 / n_all),
+                scale_grad(aux["z"], 1 / n_all))
+
+    names = ("x", *keys)
+    rep = placements(P(), mesh)
+    y, lb, z = local_map(
+        fn, out_placements=(placements(specs["x"], mesh), rep, rep),
+        in_placements=tuple(placements(specs[k], mesh) for k in names),
+        in_grad_placements=tuple(_grad_placements(specs[k], mesh) for k in names),
+        device_mesh=mesh, redistribute_inputs=True)(x, *(params[k] for k in keys))
+    if plain:
+        return whole(y), {"lb": whole(lb), "z": whole(z)}
+    return y, {"lb": lb, "z": z}

@@ -35,15 +35,42 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.distributed.sharding import (P, constrain, dp_axes, dp_size, local_part,
+                                              mesh_context, placements, replicate, replicated,
+                                              whole)
+from repro_torch.launch.mesh import mesh_shape
 from repro_torch.tree import tree_map
 from . import layers as L
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step
 
 KPOS_INVALID = (2 ** 31 - 1) // 2   # empty ring slot: always masked
+
+
+def _constrain_batch(x, mesh):
+    """Pin activations to data-parallel batch sharding (replicated elsewhere),
+    JAX's ``with_sharding_constraint`` at each block boundary: ``redistribute``
+    to ``Shard(0)`` over the dp axes where they divide the batch. Without a
+    mesh, or on a plain tensor, ``x`` as it is."""
+    if mesh is None or x.shape[0] % dp_size(mesh) != 0:
+        return x
+    return constrain(x, mesh, P(dp_axes(mesh), *([None] * (x.dim() - 1))))
+
+
+def _constrain_seq(x, mesh, cfg: ModelConfig):
+    """Sequence-parallel residual layout P(dp, model, None) under
+    ``cfg.seq_parallel``, where the axes divide batch and sequence."""
+    if mesh is None or not cfg.seq_parallel or x.dim() != 3:
+        return x
+    tp = mesh_shape(mesh).get("model", 1)
+    if x.shape[0] % dp_size(mesh) != 0 or x.shape[1] % tp != 0 or tp <= 1:
+        return x
+    return constrain(x, mesh, P(dp_axes(mesh), "model", None))
 
 
 def check_servable(cfg: ModelConfig) -> None:
@@ -192,9 +219,29 @@ class Transformer(_Tree):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+def _lookup(embed: DTensor, tokens):
+    """``embed[tokens]`` for a DTensor table, under ``local_map``: the whole
+    table on every rank (gathered, as FSDP gathers a weight), each rank's
+    rows of the batch where the data-parallel axes divide it. The table's
+    gradient is then a sum over those axes (``Partial``) and replicated
+    over the rest. The lookup stays the plain indexing, whose backward
+    DTensor need not shard."""
+    mesh = embed.device_mesh
+    tokens = replicate(tokens, mesh)
+    dp = dp_axes(mesh) if tokens.shape[0] % dp_size(mesh) == 0 else None
+    tok_pl = placements(P(dp, *([None] * (tokens.dim() - 1))), mesh)
+    out_pl = placements(P(dp, *([None] * tokens.dim())), mesh)
+    grad_pl = [Partial() if isinstance(t, Shard) else Replicate() for t in tok_pl]
+    return local_map(lambda e, t: e[t], out_placements=out_pl,
+                     in_placements=(placements(P(), mesh), tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(embed, tokens)
+
+
 def token_embeddings(params, tokens, cfg: ModelConfig):
     """The embedding rows of ``tokens`` (B, S) -> (B, S, D), scaled for gemma."""
-    x = params["embed"][tokens]
+    embed = params["embed"]
+    x = _lookup(embed, tokens) if isinstance(embed, DTensor) else embed[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x
@@ -233,41 +280,43 @@ def logits_fn(params, x, cfg: ModelConfig):
 # Forward (train / prefill trunk): loop over blocks
 # ---------------------------------------------------------------------------
 
-def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig):
+def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, mesh=None):
     """The sublayer's feed-forward on the residual x. Returns (x, the MoE's
     aux losses, or None for an MLP or no FFN). The MoE has no post-norm, as
     in JAX."""
     if spec.ffn == "mlp":
-        h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
+        h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
         h = L.mlp(h, p["mlp"], cfg.act)
         if cfg.post_norms:
             h = L.rmsnorm(h, p["ffn_post_norm"], cfg.norm_eps)
         return x + h, None
     if spec.ffn == "moe":
-        h, losses = moe_ffn(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), p["moe"], cfg)
+        h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
+        h, losses = moe_ffn(h, p["moe"], cfg, mesh=mesh)
         return x + h, losses
     return x, None
 
 
-def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross_kv=None):
+def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross_kv=None,
+                    mesh=None):
     """One sublayer (attn or mamba, then whisper's cross-attention over
     ``cross_kv`` = (k, v) where given, then ffn) in train/prefill form.
     Returns (x, aux losses or None)."""
-    h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    h = _constrain_batch(L.rmsnorm(x, p["norm"], cfg.norm_eps), mesh)
     if spec.kind == "attn":
         h = L.multihead_attention(h, p["attn"], cfg, positions=positions,
-                                  window=spec.window, causal=True)
+                                  window=spec.window, causal=True, mesh=mesh)
     else:
-        h = mamba_chunked(h, p["attn"], cfg)
+        h = replicated(mamba_chunked, mesh, h, p["attn"], cfg)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
     x = x + h
     if cross_kv is not None:
         h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
         h = L.multihead_attention(h, p["cross"], cfg, positions=None, kv_override=cross_kv,
-                                  causal=False)
+                                  causal=False, mesh=mesh)
         x = x + h
-    return apply_ffn(x, p, spec, cfg)
+    return apply_ffn(x, p, spec, cfg, mesh)
 
 
 def _positions(b: int, s: int, cfg: ModelConfig, device):
@@ -278,7 +327,7 @@ def _positions(b: int, s: int, cfg: ModelConfig, device):
     return pos[None, :].expand(b, s)
 
 
-def _encoder_forward(params, frames, cfg: ModelConfig):
+def _encoder_forward(params, frames, cfg: ModelConfig, mesh=None):
     """Whisper encoder over precomputed conv frames (B, enc_seq, D):
     non-causal self-attention + MLP blocks, no rope."""
     if frames is None:
@@ -286,12 +335,14 @@ def _encoder_forward(params, frames, cfg: ModelConfig):
                          f"(B, {cfg.encoder_seq}, {cfg.d_model})")
     pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
     x = frames.to(getattr(torch, cfg.dtype))
-    x = x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype)
+    x = _constrain_batch(x + L.sinusoidal_positions(pos, cfg.d_model).to(x.dtype), mesh)
     enc = params["encoder"]
     for l in range(cfg.encoder_layers):
         p = layer_params(enc["blocks"], l)
+        x = _constrain_batch(x, mesh)
         h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-        x = x + L.multihead_attention(h, p["attn"], cfg, positions=None, causal=False)
+        x = x + L.multihead_attention(h, p["attn"], cfg, positions=None, causal=False,
+                                      mesh=mesh)
         h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
         x = x + L.mlp(h, p["mlp"], cfg.act)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
@@ -310,7 +361,7 @@ def block_slices(tree, n: int) -> list:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None,
-            vis_embeds=None, remat: bool | str = True):
+            vis_embeds=None, remat: bool | str = True, mesh=None):
     """Trunk forward. Returns (final_hidden (B,S,D), aux losses dict).
     ``enc_frames`` (B, enc_seq, D): whisper's encoder input, required for an
     encoder-decoder model; ``vis_embeds`` (B, nv, D): qwen2-vl's patch
@@ -321,35 +372,49 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None
     JAX's ``jax.checkpoint`` of its scan body: its activations are
     recomputed in the backward pass, attention kernels included. JAX's
     ``remat="dots"`` (the ``dots_saveable`` policy) has no exact PyTorch
-    counterpart and raises ``NotImplementedError``."""
+    counterpart and raises ``NotImplementedError``.
+
+    ``mesh``: params (and inputs) are DTensors on it (``distributed``); the
+    residual stream is pinned to the batch over the data-parallel axes at
+    each block boundary (``_constrain_batch``), DTensor propagates the rest,
+    and attention and the MoE run under ``local_map``."""
     if remat == "dots":
         raise NotImplementedError(
             "remat='dots' (JAX's jax.checkpoint_policies.dots_saveable: keep matmul "
             "outputs, recompute the rest) has no counterpart in the port; use remat=True "
             "or False")
-    b, s = tokens.shape
-    if positions is None:
-        positions = _positions(b, s, cfg, tokens.device)
-    x = embed_tokens(params, tokens, cfg, vis_embeds)
-    cross = encode_cross_kv(params, enc_frames, cfg) if cfg.encoder_layers else None
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = [block_slices(tree, cfg.n_blocks) for tree in params["blocks"]]
+    with mesh_context(mesh):
+        b, s = tokens.shape
+        if positions is None:
+            positions = _positions(b, s, cfg, tokens.device)
+        x = embed_tokens(params, tokens, cfg, vis_embeds)
+        cross = (encode_cross_kv(params, enc_frames, cfg, mesh) if cfg.encoder_layers
+                 else None)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        if mesh is not None:
+            zero = replicate(zero, mesh)
+        blocks = [block_slices(tree, cfg.n_blocks) for tree in params["blocks"]]
 
-    def block(x, lb, z, l):
-        for i, spec in enumerate(cfg.block):
-            x, losses = _apply_sublayer(x, blocks[i][l], spec, cfg, positions=positions,
-                                        cross_kv=_layer_kv(cross, l))
-            if losses is not None:
-                lb, z = lb + losses["lb"], z + losses["z"]
-        return x, lb, z
+        def block(x, lb, z, l):
+            with mesh_context(mesh):       # again in the backward's recompute
+                x = (_constrain_seq(x, mesh, cfg) if cfg.seq_parallel
+                     else _constrain_batch(x, mesh))
+                for i, spec in enumerate(cfg.block):
+                    x, losses = _apply_sublayer(x, blocks[i][l], spec, cfg,
+                                                positions=positions,
+                                                cross_kv=_layer_kv(cross, l), mesh=mesh)
+                    if losses is not None:
+                        lb, z = lb + losses["lb"], z + losses["z"]
+            return x, lb, z
 
-    lb = z = zero
-    for l in range(cfg.n_blocks):
-        if remat and torch.is_grad_enabled():
-            x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False)
-        else:
-            x, lb, z = block(x, lb, z, l)
-    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": lb, "z": z}
+        x = _constrain_batch(x, mesh)
+        lb = z = zero
+        for l in range(cfg.n_blocks):
+            if remat and torch.is_grad_enabled():
+                x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False)
+            else:
+                x, lb, z = block(x, lb, z, l)
+        return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": lb, "z": z}
 
 
 def forward_logits(params, tokens, cfg: ModelConfig, **kw):
@@ -362,38 +427,51 @@ def forward_logits(params, tokens, cfg: ModelConfig, **kw):
 # Loss (chunked over the sequence so (B, S, vocab) is never held)
 # ---------------------------------------------------------------------------
 
-def lm_loss(params, cfg: ModelConfig, hidden, labels, mask=None, seq_chunk: int = 1024):
+def lm_loss(params, cfg: ModelConfig, hidden, labels, mask=None, seq_chunk: int = 1024,
+            mesh=None):
     """Masked mean cross-entropy over the vocab, ``labels`` (B, S) int.
 
     JAX's rule: chunks of ``c = min(seq_chunk, S)`` positions, one chunk of
     S when c does not divide S. Each chunk's f32 logits (through
     ``head_weight``, softcapped for gemma2) live only inside a
     ``torch.utils.checkpoint``, as under JAX's ``jax.checkpoint``, and are
-    recomputed in the backward pass. Divides by ``max(mask.sum(), 1)``."""
+    recomputed in the backward pass. Divides by ``max(mask.sum(), 1)``.
+    With a ``mesh`` each chunk's logits are gathered over the vocab
+    (replicated over ``model``, the batch over the data-parallel axes where
+    they divide it) before the log-sum-exp and the target's pick."""
     b, s, _ = hidden.shape
-    w = head_weight(params, cfg)
-    c = min(seq_chunk, s)
-    if s % c:
-        c = s
-    if mask is None:
-        mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
-    mask = mask.float()
-    labels = labels.long()
+    with mesh_context(mesh):
+        w = head_weight(params, cfg)
+        hidden = _constrain_batch(hidden, mesh)
+        c = min(seq_chunk, s)
+        if s % c:
+            c = s
+        if mask is None:
+            mask = torch.ones((b, s), dtype=torch.float32, device=hidden.device)
+        mask = mask.float()
+        labels = labels.long()
+        dp = None if mesh is None or b % dp_size(mesh) else dp_axes(mesh)
 
-    def chunk_sum(xc, lc, mc):
-        logits = (xc @ w).float()                                   # (B, c, V)
-        if cfg.logit_softcap:
-            logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
-        return ((lse - tgt) * mc).sum()
+        def chunk_sum(xc, lc, mc):
+            with mesh_context(mesh):       # again in the backward's recompute
+                logits = (xc @ w).float()                               # (B, c, V)
+                if mesh is not None:
+                    logits = constrain(logits, mesh, P(dp, None, None))
+                if cfg.logit_softcap:
+                    logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+                lse = torch.logsumexp(logits, dim=-1)
+                tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
+                return ((lse - tgt) * mc).sum()
 
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
-    for c0 in range(0, s, c):
-        sl = slice(c0, c0 + c)
-        total = total + checkpoint(chunk_sum, hidden[:, sl], labels[:, sl], mask[:, sl],
-                                   use_reentrant=False)
-    return total / mask.sum().clamp_min(1.0)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if mesh is not None:
+            total = replicate(total, mesh)
+        for c0 in range(0, s, c):
+            sl = slice(c0, c0 + c)
+            total = total + checkpoint(chunk_sum, hidden[:, sl], labels[:, sl], mask[:, sl],
+                                       use_reentrant=False)
+        loss = total / mask.sum().clamp_min(1.0)
+        return loss if mesh is None else constrain(loss, mesh, P())
 
 
 # ---------------------------------------------------------------------------
@@ -418,8 +496,13 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
     return {k: a[None].repeat(cfg.n_blocks, *([1] * a.dim())) for k, a in st.items()}
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> DecodeCache:
+def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
+                      mesh=None) -> DecodeCache:
+    """Zero caches on ``device``. With a ``mesh`` they are this rank's: its
+    KV heads (``layers.local_kv_heads``), every batch row, as the mesh
+    routes of ``decode_step`` and ``prefill`` read and write them."""
     dt = getattr(torch, cfg.dtype)
+    kvh = L.local_kv_heads(cfg.n_kv_heads, mesh)
     nb = cfg.n_blocks
     layer_caches = []
     for spec in cfg.block:
@@ -427,7 +510,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -
             layer_caches.append(init_mamba_cache(cfg, batch, device))
             continue
         cap = _attn_cache_cap(spec, max_seq)
-        shape = (nb, batch, cap, cfg.n_kv_heads, cfg.head_dim)
+        shape = (nb, batch, cap, kvh, cfg.head_dim)
         layer_caches.append({
             "k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device),
@@ -443,7 +526,7 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -
                        layers=tuple(layer_caches), cross=cross)
 
 
-def encode_cross_kv(params, enc_frames, cfg: ModelConfig) -> dict:
+def encode_cross_kv(params, enc_frames, cfg: ModelConfig, mesh=None) -> dict:
     """Whisper: run the encoder once, project K/V for every decoder layer.
 
     Returns {"k","v"}: (n_layers, B, enc_seq, KV, hd). Cross-attention
@@ -451,7 +534,7 @@ def encode_cross_kv(params, enc_frames, cfg: ModelConfig) -> dict:
     ``forward`` and ``prefill`` too, which take their cross K/V from here."""
     if len(cfg.block) != 1 or cfg.block[0].kind != "attn":
         raise NotImplementedError("cross-attn assumes homogeneous decoder block")
-    enc_out = _encoder_forward(params, enc_frames, cfg)
+    enc_out = _encoder_forward(params, enc_frames, cfg, mesh)
     kv = [L.project_kv(enc_out, layer_params(params["blocks"][0]["cross"], l), cfg,
                        positions=None) for l in range(cfg.n_blocks)]
     return {"k": torch.stack([k for k, _ in kv]), "v": torch.stack([v for _, v in kv])}
@@ -466,8 +549,11 @@ def _layer_kv(cross, l: int):
 # Decode step (one new token per sequence)
 # ---------------------------------------------------------------------------
 
-def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions):
-    """x: (B,1,D). cache: {"k","v","kpos"} of THIS layer, written in place."""
+def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions, mesh=None):
+    """x: (B,1,D). cache: {"k","v","kpos"} of THIS layer, written in place.
+    With a ``mesh`` the cache write and the attention run under
+    ``local_map`` on this rank's heads, every row (the cache holds them,
+    ``init_decode_cache(mesh=)``)."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p["wq"]).reshape(b, 1, h, hd)
@@ -479,52 +565,71 @@ def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions):
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    cap = cache["k"].shape[1]
-    slot = (lengths % cap).long()
-    bidx = torch.arange(b, device=x.device)
-    cache["k"][bidx, slot] = k[:, 0]
-    cache["v"][bidx, slot] = v[:, 0]
-    cache["kpos"][bidx, slot] = lengths
-    out = L.decode_attention(q, cache["k"], cache["v"], lengths=lengths + 1,
-                             softcap=cfg.attn_softcap, kpos=cache["kpos"])
-    return out @ p["wo"]
+
+    def attend(q, k, v):
+        cap = cache["k"].shape[1]
+        slot = (lengths % cap).long()
+        bidx = torch.arange(b, device=q.device)
+        cache["k"][bidx, slot] = k[:, 0]
+        cache["v"][bidx, slot] = v[:, 0]
+        cache["kpos"][bidx, slot] = lengths
+        return L.decode_attention(q, cache["k"], cache["v"], lengths=lengths + 1,
+                                  softcap=cfg.attn_softcap, kpos=cache["kpos"])
+
+    if mesh is not None and isinstance(q, DTensor):
+        pl = L.head_placements(mesh, None, kvh)
+        attend = local_map(attend, out_placements=pl, in_placements=(pl, pl, pl),
+                           device_mesh=mesh, redistribute_inputs=True)
+    return attend(q, k, v) @ p["wo"]
 
 
-def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positions=None):
+def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positions=None,
+                mesh=None):
     """tokens: (B, 1) -> (logits (B,1,V), cache). The cache is updated in
     place; the returned one shares its tensors, with lengths + 1. Default
     positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE; whisper
-    adds its absolute position there and cross-attends to ``cache.cross``."""
+    adds its absolute position there and cross-attends to ``cache.cross``.
+
+    With a ``mesh`` (params DTensors, the cache this rank's,
+    ``init_decode_cache(mesh=)``) the residual is pinned to the batch over
+    the data-parallel axes at each block, attention and the MoE run under
+    ``local_map``, the Mamba2 step on every rank whole; the logits come
+    back plain and whole."""
     b = tokens.shape[0]
     lengths = cache.lengths
     if positions is None:
         positions = lengths[:, None]
         if cfg.mrope_sections:
             positions = lengths[:, None, None].expand(b, 3, 1)
-    x = _add_abs_positions(token_embeddings(params, tokens, cfg), lengths[:, None], cfg)
-    for l in range(cfg.n_blocks):
-        for i, spec in enumerate(cfg.block):
-            p = layer_params(params["blocks"][i], l)
-            layer_cache = layer_params(cache.layers[i], l)
-            h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-            if spec.kind == "attn":
-                h = _decode_attn_sublayer(h, p["attn"], cfg, layer_cache, lengths, positions)
-            else:
-                h, new = mamba_decode_step(h, layer_cache, p["attn"], cfg)
-                for k, v in new.items():
-                    layer_cache[k].copy_(v)
-            if cfg.post_norms:
-                h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-            x = x + h
-            if cache.cross is not None:
-                h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
-                h = L.decode_cross_attention(h, p["cross"], cfg,
-                                             {"k": cache.cross["k"][l], "v": cache.cross["v"][l]})
+    with mesh_context(mesh):
+        x = _add_abs_positions(token_embeddings(params, tokens, cfg), lengths[:, None], cfg)
+        for l in range(cfg.n_blocks):
+            x = _constrain_batch(x, mesh)
+            for i, spec in enumerate(cfg.block):
+                p = layer_params(params["blocks"][i], l)
+                layer_cache = layer_params(cache.layers[i], l)
+                h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+                if spec.kind == "attn":
+                    h = _decode_attn_sublayer(h, p["attn"], cfg, layer_cache, lengths,
+                                              positions, mesh)
+                else:
+                    h, new = replicated(mamba_decode_step, mesh, h, layer_cache, p["attn"],
+                                        cfg)
+                    for k, v in new.items():
+                        layer_cache[k].copy_(local_part(v))
+                if cfg.post_norms:
+                    h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
                 x = x + h
-            x, _ = apply_ffn(x, p, spec, cfg)
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return logits_fn(params, x, cfg), DecodeCache(lengths=lengths + 1, layers=cache.layers,
-                                                  cross=cache.cross)
+                if cache.cross is not None:
+                    h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+                    h = L.decode_cross_attention(h, p["cross"], cfg,
+                                                 {"k": cache.cross["k"][l],
+                                                  "v": cache.cross["v"][l]})
+                    x = x + h
+                x, _ = apply_ffn(x, p, spec, cfg, mesh)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = whole(logits_fn(params, x, cfg))
+    return logits, DecodeCache(lengths=lengths + 1, layers=cache.layers, cross=cache.cross)
 
 
 # ---------------------------------------------------------------------------
@@ -545,47 +650,62 @@ def _conv_tail(h, p, cfg: ModelConfig) -> dict:
 
 
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
-            enc_frames=None, vis_embeds=None):
+            enc_frames=None, vis_embeds=None, mesh=None):
     """Process the prompt, build the decode cache. Returns (last_logits, cache).
 
     For whisper the encoder runs once: ``encode_cross_kv``'s K/V feed the
     prefill's cross-attention and become the cache's. JAX runs the encoder
     twice, in its prefill and again inside its ``encode_cross_kv``; the
-    numbers are the same, the encoder work half."""
+    numbers are the same, the encoder work half.
+
+    With a ``mesh`` the forward is ``forward``'s mesh route and the cache
+    this rank's (``init_decode_cache(mesh=)``): its KV heads, every row; a
+    Mamba2 state and the cross K/V whole. The logits come back plain and
+    whole."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = _positions(b, s, cfg, dev)
-    x = embed_tokens(params, tokens, cfg, vis_embeds)
-    cross = encode_cross_kv(params, enc_frames, cfg) if cfg.encoder_layers else None
-    caches: list[list[dict]] = [[] for _ in cfg.block]
-    for l in range(cfg.n_blocks):
-        for i, spec in enumerate(cfg.block):
-            p = layer_params(params["blocks"][i], l)
-            hpre = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-            if spec.kind != "attn":
-                h, state = mamba_chunked(hpre, p["attn"], cfg, return_state=True)
-                caches[i].append({**_conv_tail(hpre, p["attn"], cfg), "ssm": state})
-                if cfg.post_norms:
-                    h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-                x, _ = apply_ffn(x + h, p, spec, cfg)
-                continue
-            k, v = L.project_kv(hpre, p["attn"], cfg, positions)
-            cap = _attn_cache_cap(spec, max_seq)
-            kc = torch.zeros((b, cap, cfg.n_kv_heads, cfg.head_dim), dtype=k.dtype, device=dev)
-            vc = torch.zeros_like(kc)
-            kp = torch.full((b, cap), KPOS_INVALID, dtype=torch.int32, device=dev)
-            w = min(s, cap)
-            pos = s - w + torch.arange(w, device=dev)
-            sl = pos % cap
-            kc[:, sl] = k[:, -w:]
-            vc[:, sl] = v[:, -w:]
-            kp[:, sl] = pos.to(torch.int32)[None, :]
-            caches[i].append({"k": kc, "v": vc, "kpos": kp})
-            x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions,
-                                   cross_kv=_layer_kv(cross, l))
-    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = logits_fn(params, x[:, -1:, :], cfg)
+    kvh = L.local_kv_heads(cfg.n_kv_heads, mesh)
+    with mesh_context(mesh):
+        x = _constrain_batch(embed_tokens(params, tokens, cfg, vis_embeds), mesh)
+        cross = (encode_cross_kv(params, enc_frames, cfg, mesh) if cfg.encoder_layers
+                 else None)
+        caches: list[list[dict]] = [[] for _ in cfg.block]
+        for l in range(cfg.n_blocks):
+            x = _constrain_batch(x, mesh)
+            for i, spec in enumerate(cfg.block):
+                p = layer_params(params["blocks"][i], l)
+                hpre = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+                if spec.kind != "attn":
+                    h, state = replicated(mamba_chunked, mesh, hpre, p["attn"], cfg,
+                                          return_state=True)
+                    tail = replicated(_conv_tail, mesh, hpre, p["attn"], cfg)
+                    caches[i].append({**{k: local_part(t) for k, t in tail.items()},
+                                      "ssm": local_part(state)})
+                    if cfg.post_norms:
+                        h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
+                    x, _ = apply_ffn(x + h, p, spec, cfg, mesh)
+                    continue
+                k, v = (L.local_heads(t, mesh, cfg.n_kv_heads)
+                        for t in L.project_kv(hpre, p["attn"], cfg, positions))
+                cap = _attn_cache_cap(spec, max_seq)
+                kc = torch.zeros((b, cap, kvh, cfg.head_dim), dtype=k.dtype, device=dev)
+                vc = torch.zeros_like(kc)
+                kp = torch.full((b, cap), KPOS_INVALID, dtype=torch.int32, device=dev)
+                w = min(s, cap)
+                pos = s - w + torch.arange(w, device=dev)
+                sl = pos % cap
+                kc[:, sl] = k[:, -w:]
+                vc[:, sl] = v[:, -w:]
+                kp[:, sl] = pos.to(torch.int32)[None, :]
+                caches[i].append({"k": kc, "v": vc, "kpos": kp})
+                x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions,
+                                       cross_kv=_layer_kv(cross, l), mesh=mesh)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        logits = whole(logits_fn(params, x[:, -1:, :], cfg))
+        if cross is not None:
+            cross = {k: whole(t) for k, t in cross.items()}
     cache = DecodeCache(lengths=torch.full((b,), s, dtype=torch.int32, device=dev),
                         layers=tuple(_stack(c) for c in caches), cross=cross)
     return logits, cache

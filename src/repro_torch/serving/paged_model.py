@@ -12,12 +12,20 @@ capacity too.
 The pools are updated in place (the JAX step returns new, immutable pools).
 Background offload threads read pages out of the same tensors, so the engine
 runs each step under its pools lock; see ``engine.ServeEngine``.
+
+With a ``mesh`` (params DTensors, ``param_specs(fsdp=False)``) the pools are
+this rank's: its KV heads (``layers.local_kv_heads``), every page. The K/V
+write and the paged kernel run under ``local_map`` on those heads, the MoE
+through ``moe_ffn(mesh=)``, a Mamba2 step on every rank whole.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_part, mesh_context, replicated, whole
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -25,13 +33,15 @@ from repro_torch.models.ssm import mamba_decode_step
 
 
 def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: int,
-               device=None):
+               device=None, mesh=None):
     """Per block position, stacked over n_blocks: K/V pools (n_blocks,
     num_pages, page_size, KV, hd) in the config dtype for an attention
     position, per-row state pools {"conv_x", "conv_bc", "ssm"} (n_blocks,
-    max_batch, ...) for a mamba position (``transformer.init_mamba_cache``)."""
+    max_batch, ...) for a mamba position (``transformer.init_mamba_cache``).
+    With a ``mesh``, KV is this rank's share (``layers.local_kv_heads``)."""
     dt = getattr(torch, cfg.dtype)
-    shape = (cfg.n_blocks, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    shape = (cfg.n_blocks, num_pages, page_size, L.local_kv_heads(cfg.n_kv_heads, mesh),
+             cfg.head_dim)
     pools = []
     for spec in cfg.block:
         if spec.kind == "attn":
@@ -42,7 +52,7 @@ def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: i
     return tuple(pools)
 
 
-def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
+def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
     """Returns ``step(params, pools, tokens, lengths, page_table, rows) ->
     logits (B, 1, V)``. An encoder-decoder model raises
     (``transformer.check_servable``).
@@ -55,6 +65,7 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
     not move); every row attends, over ``lengths + 1`` keys (an inactive row
     reads the scratch page its table points at, and its output is ignored).
     Positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE, as JAX.
+    With a ``mesh`` the logits come back plain and whole on every rank.
     """
     T.check_servable(cfg)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -71,11 +82,19 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
         if cfg.rope_theta:
             q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
             k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-        k_pool[pids, offs] = k[rows, 0]
-        v_pool[pids, offs] = v[rows, 0]
-        out = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool, page_table,
-                                  lengths1, softcap=cfg.attn_softcap)
-        return out.reshape(b, 1, h * hd) @ p["wo"]
+
+        def attend(q, k, v):
+            k_pool[pids, offs] = k[rows, 0]
+            v_pool[pids, offs] = v[rows, 0]
+            out = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool, page_table,
+                                      lengths1, softcap=cfg.attn_softcap)
+            return out.reshape(b, 1, -1)
+
+        if mesh is not None and isinstance(q, DTensor):
+            pl = L.head_placements(mesh, None, kvh)
+            attend = local_map(attend, out_placements=pl, in_placements=(pl, pl, pl),
+                               device_mesh=mesh, redistribute_inputs=True)
+        return attend(q, k, v) @ p["wo"]
 
     def step(params, pools, tokens, lengths, page_table, rows):
         positions = lengths[:, None]
@@ -85,23 +104,24 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int):
         cur = lengths[rows].long()
         pids = page_table[rows, cur // page_size].long()
         offs = cur % page_size
-        x = T.token_embeddings(params, tokens, cfg)
-        for l in range(cfg.n_blocks):
-            for i, spec in enumerate(cfg.block):
-                p = T.layer_params(params["blocks"][i], l)
-                hh = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-                if spec.kind == "attn":
-                    hh = attn_sublayer(hh, p["attn"], pools[i]["k"][l], pools[i]["v"][l],
-                                       rows, pids, offs, page_table, lengths1, positions)
-                else:
-                    state = T.layer_params(pools[i], l)
-                    hh, new = mamba_decode_step(hh, state, p["attn"], cfg)
-                    for k, v in new.items():
-                        state[k][rows] = v[rows]
-                if cfg.post_norms:
-                    hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
-                x, _ = T.apply_ffn(x + hh, p, spec, cfg)
-        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
-        return T.logits_fn(params, x, cfg)
+        with mesh_context(mesh):
+            x = T.token_embeddings(params, tokens, cfg)
+            for l in range(cfg.n_blocks):
+                for i, spec in enumerate(cfg.block):
+                    p = T.layer_params(params["blocks"][i], l)
+                    hh = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+                    if spec.kind == "attn":
+                        hh = attn_sublayer(hh, p["attn"], pools[i]["k"][l], pools[i]["v"][l],
+                                           rows, pids, offs, page_table, lengths1, positions)
+                    else:
+                        state = T.layer_params(pools[i], l)
+                        hh, new = replicated(mamba_decode_step, mesh, hh, state, p["attn"], cfg)
+                        for k, v in new.items():
+                            state[k][rows] = local_part(v)[rows]
+                    if cfg.post_norms:
+                        hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
+                    x, _ = T.apply_ffn(x + hh, p, spec, cfg, mesh)
+            x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            return whole(T.logits_fn(params, x, cfg))
 
     return step

@@ -116,10 +116,20 @@ def test_moe_local_matches_jax(factor, skew):
 
 
 def test_moe_ffn_refuses_a_mesh():
+    """``moe_ffn`` takes a mesh since the distribution slice (its routes over
+    a mesh are held to JAX's in tests/test_torch_distributed.py): it refuses
+    an object that is no mesh, and a mesh without the EP axis takes the
+    local math, as JAX's."""
+    from repro_torch.launch.mesh import MeshShape
+
     _, cfg = _cfgs("olmoe-1b-7b")
     x, p = _moe_inputs(cfg, False)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        M.moe_ffn(_t(x), {k: _t(v) for k, v in p.items()}, cfg, mesh=object())
+    tp = {k: _t(v) for k, v in p.items()}
+    with pytest.raises(TypeError, match="mesh"):
+        M.moe_ffn(_t(x), tp, cfg, mesh=object())
+    y, aux = M.moe_ffn(_t(x), tp, cfg, mesh=MeshShape({"model": 1}))
+    want, want_aux = M.moe_local(_t(x), tp, cfg)
+    assert torch.equal(y, want) and torch.equal(aux["lb"], want_aux["lb"])
 
 
 # ---------------------------------------------------------------------------
