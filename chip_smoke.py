@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
-  python3 chip_smoke.py [--seed N] [--decode-probe SRC | --flush-probe SRC]
+  python3 chip_smoke.py [--seed N] [--decode-probe SRC | --flush-probe SRC |
+                         --backward-probe SRC | --mesh-probe SRC]
 
 Phases, each printing its own lines; any failure exits non-zero before the
 last line:
@@ -132,9 +133,28 @@ last line:
               paged kernel under ``local_map``), its first step's logits held
               to the unsharded step's (3e-2 relative L2, replayed routing),
               the median step beside phase 8's;
- 12. the kernels line (JSON), the device line, and the result line.
+ 12. tooling  the dry-run and cost tooling and the serving bench: (a)
+              ``benchmarks/serving_bench.run`` with qwen3-8b at its published
+              size, bf16, flusher on and then off (8 requests of 16 tokens,
+              24 new, a pool of 4 sets x 3 pages of 8 tokens, so rows are
+              preempted): every request finishes, both runs emit the same
+              tokens, both preempt, the paged and flash kernels launched;
+              blocking offloads, clean evictions, stale discards, offloads,
+              fetches, tokens/s and the median step of each; (b)
+              ``launch/cost.py`` over tinyllama-1.1b's train step at phase
+              10's shape and qwen3-8b's paged decode step at phase 5's batch,
+              on fake tensors on the card: FLOPs, bytes and the derived bound
+              beside the medians phases 10 and 5 measured, the train count at
+              least phase 10's model FLOPs and the decode count at least
+              ``decode_step_bytes``; (c) ``launch/dryrun.py`` in a process of
+              its own per cell, tinyllama-1.1b train_4k on the (16, 16) mesh
+              and olmoe-1b-7b decode_32k on (2, 16, 16), the card's route on
+              this machine's torch: each exits 0; and the host time the
+              kernels' operator registration adds to a paged and a flash
+              call;
+ 13. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each run of phases 4-11
+The kernel launch counts are set to 0 just before each run of phases 4-12
 and read just after, to show each path ran through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
@@ -148,6 +168,10 @@ SASS of its library (``cuobjdump -sass``; the text beside the library).
 ``--backward-probe SRC`` does the same for the attention backward at
 tinyllama's training shape (``time_attention_backward``: the Function's
 output and gradients held to the plain version's, then timed).
+``--mesh-probe SRC`` does the same for phase 11's two timed runs at world 1
+(``mesh_probe``): tinyllama's mesh train step and olmoe-1b-7b's mesh decode
+step, with the batch constraints (``transformer._constrain_batch``) each
+step makes and their host µs a call.
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -517,11 +541,9 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
     lib_err = (library(0)[:, :, 0].float()
                - ref.paged_attention_ref(q, kpools[0], vpools[0], table, lens).float()
                ).abs().max().item()
-    keys = int(lens_np.sum())
-    moved = (keys * kv * hd * 2 * 2            # K and V rows read, bf16
-             + 2 * b * h * hd * 2              # q read, out written
-             + int((-(-lens_np // page)).sum()) * 4 + b * 4)   # table entries, lengths
-    flops = 4 * keys * h * hd                  # q.k and p.v
+    work = paged_mod.cost(tuple(q.shape), tuple(kpools[0].shape), tuple(table.shape), 2,
+                          lengths)
+    moved, flops = work["bytes"], work["flops"]
     bw = hbm_bytes_per_s(card)
     bound_s = max(moved / bw, flops / BF16_PEAK_FLOPS)
     bound_by = "bytes" if moved / bw >= flops / BF16_PEAK_FLOPS else "operations"
@@ -540,18 +562,6 @@ def time_paged(torch, card: str, rng, name: str, maxp: int, pool: int, lengths: 
             "library_ms": library_ms, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "bytes": moved, "lengths": lens_np.tolist(), "table": maxp, "plan": plan,
             "max_abs_err": err, "rel_l2": rel}
-
-
-def flash_pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
-    """(query, key) pairs the masks leave valid: the work of one head."""
-    qpos = np.arange(sq)[:, None] + q_offset
-    kpos = np.arange(skv)[None, :]
-    mask = np.ones((sq, skv), bool)
-    if causal:
-        mask &= kpos <= qpos
-    if window:
-        mask &= kpos > qpos - window
-    return int(mask.sum())
 
 
 def phase_flash(torch, seed: int, card: str) -> dict:
@@ -605,6 +615,7 @@ def time_flash(torch, card: str, shape, *, window: int, softcap: float, with_pla
     window as a mask; SDPA has no softcap), and, at S 4096, the plain
     version. The kernel is first held to the plain version on 4 q heads."""
     import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops, ref
 
     b, s, h, kv, hd = shape
@@ -638,8 +649,8 @@ def time_flash(torch, card: str, shape, *, window: int, softcap: float, with_pla
                                                            enable_gqa=True)
         library_name = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
     library_ms = graph_ms(torch, library, 3, reps=5)
-    flops = 4 * b * h * hd * flash_pairs(s, s, True, window, 0)      # q.k and p.v
-    moved = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd)           # q, out, k, v in bf16
+    work = flash_mod.cost(tuple(q.shape), tuple(k.shape), 2, causal=True, window=window)
+    flops, moved = work["flops"], work["bytes"]
     bw = hbm_bytes_per_s(card)
     bound_s = max(moved / bw, flops / BF16_PEAK_FLOPS)
     bound_by = "bytes" if moved / bw >= flops / BF16_PEAK_FLOPS else "operations"
@@ -753,6 +764,7 @@ def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
     (hits[1:], clock[1:], valid[1:], which the set design stages through
     shared memory); the plain version and the bound by bytes. The kernel is
     first held to the plain version on both, exactly."""
+    from repro_torch.kernels import flush_score as flush_mod
     from repro_torch.kernels import ops, ref
 
     ins = [flush_inputs(torch, ns + 1, ss, rng) for _ in range(copies)]
@@ -773,7 +785,7 @@ def time_flush(torch, card: str, rng, ns: int, ss: int, copies: int) -> dict:
     view_ms = timed(ops.flush_scores, views)
     plain_ms = graph_ms(torch, lambda i: ref.flush_scores_ref(*aligned[i % copies]),
                         min(copies, 3), reps=5)
-    moved = ns * ss * (4 + 1 + 4) + ns * 4          # hits, valid, out; clock
+    moved = flush_mod.cost(ns, ss)["bytes"]
     bw = hbm_bytes_per_s(card)
     bound_ms = moved / bw * 1e3
     print(f"[kernels] flush_scores at {ns} sets x {ss}, {copies} copies rotated: device time "
@@ -1204,6 +1216,7 @@ def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict
     gathered), the mamba state of the B rows read and of the active rows
     written, the K/V of ``lengths + 1`` keys of each row read and one key of
     each active row written per attention layer, and the f32 logits."""
+    from repro_torch.kernels import paged_attention as paged_mod
     from repro_torch.tree import leaves
 
     b = len(lengths)
@@ -1213,8 +1226,9 @@ def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict
         weights -= (params["embed"].shape[0] - b) * cfg.d_model * elem
     per_row = sum(a[:, 0].numel() * a.element_size()
                   for i in eng._mamba_positions for a in eng.pools[i].values())
-    key = cfg.n_kv_heads * cfg.head_dim * 2 * elem                   # K and V of one key
-    kv = attn_layers(cfg) * key * (sum(n + 1 for n in lengths) + active)
+    key = paged_mod.kv_bytes([1], cfg.n_kv_heads, cfg.head_dim, elem)    # K and V of one key
+    kv = attn_layers(cfg) * (paged_mod.kv_bytes([n + 1 for n in lengths], cfg.n_kv_heads,
+                                                cfg.head_dim, elem) + key * active)
     return {"weights": weights, "state": per_row * (b + active), "kv": kv,
             "logits": b * cfg.vocab * 4}
 
@@ -2445,6 +2459,124 @@ def quantize_check(torch, grads, card: str) -> dict:
     return out
 
 
+def mesh_train_steps(torch, cfg, mesh, seed: int):
+    """``MESH_TRAIN_STEPS`` steps of ``make_train_step(cfg, mesh)`` (remat,
+    ``TRAIN_FULL_SHAPE``'s microbatches) from weights drawn from ``seed``
+    on the card, placed by ``param_specs``, on ``SyntheticLM(seed)``'s
+    batches: (params, opt, losses, ms of each step)."""
+    from repro_torch.data import SyntheticLM, make_global_batch
+    from repro_torch.distributed import data_spec, distribute_tree, param_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    b, s, mb = TRAIN_FULL_SHAPE
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    params = distribute_tree(params, param_specs(params, mesh), mesh)
+    opt = adamw_init(params)
+    step_fn = make_train_step(cfg, mesh, remat=True, microbatches=mb, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(cfg.vocab, s, b, seed=seed)
+    dspec = data_spec(mesh, b)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    for i in range(MESH_TRAIN_STEPS):
+        batch = make_global_batch(data.batch(i), mesh, dspec, "cuda")
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["ce"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return params, opt, losses, ms
+
+
+def mesh_probe(torch, seed: int, card: str) -> dict:
+    """``--mesh-probe SRC``: phase 11's timed runs with the port package
+    under SRC, at world 1: tinyllama's ``mesh_train_steps`` (median of the
+    steps after the first) and olmoe-1b-7b's paged decode step with
+    ``mesh=`` under ``MESH_SERVE``'s traffic (phase 5's prompts; median of
+    the steps after the first, each timed to a synchronize), and the calls
+    of ``transformer._constrain_batch`` a step makes, with the host µs of
+    one on an activation that already has its placements (``constrain_us``)
+    before the steps and after them."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import distribute_tree, param_specs
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.paged_model import make_paged_decode_step
+
+    constrain = T._constrain_batch
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return constrain(*a, **kw)
+
+    T._constrain_batch = counted
+    mesh = start_mesh(torch)
+    try:
+        us = {"before": constrain_us(torch, mesh, constrain)}
+        _, _, losses, train_ms = mesh_train_steps(torch, get_config("tinyllama-1.1b"), mesh,
+                                                  seed)
+        train_calls = calls[0] / MESH_TRAIN_STEPS
+        free_memory(torch)
+        arch, n_req = MESH_SERVE
+        cfg, params = load_model(torch, arch, seed, tag="[mesh probe]")
+        eng = ServeEngine(cfg, params, max_batch=4, page_size=SERVE_PAGE, num_sets=SERVE_POOL[0],
+                          set_size=SERVE_POOL[1], device="cuda")
+        dparams = distribute_tree(params, param_specs(params, mesh, fsdp=False), mesh)
+        mesh_step = make_paged_decode_step(cfg, page_size=SERVE_PAGE, mesh=mesh)
+        decode_ms, decode_calls = [], []
+
+        def timed(_, *a):
+            c0, t0 = calls[0], time.perf_counter()
+            out = mesh_step(dparams, *a)
+            torch.cuda.synchronize()
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            decode_calls.append(calls[0] - c0)
+            return out
+
+        eng.step_fn = timed
+        rng = np.random.default_rng(seed)
+        for _ in range(n_req):
+            n = int(rng.integers(4, 48))
+            eng.submit([int(x) for x in rng.integers(1, cfg.vocab, n)], max_new=24)
+        eng.run(max_steps=5000)
+        eng.close()
+        us["after"] = constrain_us(torch, mesh, constrain)
+        del eng, params, dparams
+        free_memory(torch)
+    finally:
+        T._constrain_batch = constrain
+        dist.destroy_process_group()
+    return {"transformer_module": T.__file__, "card": card, "train_losses": losses,
+            "train_step_ms": train_ms, "train_median_ms": statistics.median(train_ms[1:]),
+            "train_constrain_calls_per_step": train_calls,
+            "decode_steps": len(decode_ms), "decode_median_ms": statistics.median(decode_ms[1:]),
+            "decode_constrain_calls_per_step": statistics.median(decode_calls),
+            "constrain_host_us": us}
+
+
+def constrain_us(torch, mesh, constrain) -> dict:
+    """``wrapper_host_us`` of ``constrain`` (``_constrain_batch``) on a
+    (4, 1, 2048) bf16 DTensor on the card that already has the placements
+    it asks for, with and without autograd recording; beside it a plain
+    ``torch.add`` of the local tensor, the host's own pace."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import P, dp_axes, placements
+
+    x = torch.randn(4, 1, 2048, device="cuda", dtype=torch.bfloat16)
+    x = distribute_tensor(x, mesh, placements(P(dp_axes(mesh), None, None), mesh))
+    local = x.to_local()
+    us = {"add": wrapper_host_us(torch, lambda: torch.add(local, local))}
+    for grad in (False, True):
+        y = x.detach().requires_grad_(grad)
+        with torch.set_grad_enabled(grad):
+            us["grad" if grad else "no_grad"] = wrapper_host_us(torch, lambda: constrain(y, mesh))
+    return us
+
+
 def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict) -> dict:
     """tinyllama-1.1b at its published size through the mesh route: params
     and optimizer state DTensors placed by ``param_specs``, the batch by
@@ -2455,29 +2587,15 @@ def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict
     count; then one gradient for ``quantize_check``."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM, make_global_batch
-    from repro_torch.distributed import data_spec, distribute_tree, param_specs
-    from repro_torch.launch.steps import make_grad_fn, make_train_step
-    from repro_torch.models import transformer as T
-    from repro_torch.optim import adamw_init
+    from repro_torch.distributed import data_spec
+    from repro_torch.launch.steps import make_grad_fn
 
     cfg = get_config("tinyllama-1.1b")
     b, s, mb = TRAIN_FULL_SHAPE
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
-    params = distribute_tree(params, param_specs(params, mesh), mesh)
-    opt = adamw_init(params)
-    step_fn = make_train_step(cfg, mesh, remat=True, microbatches=mb, total_steps=TRAIN_STEPS)
-    data = SyntheticLM(cfg.vocab, s, b, seed=seed)
-    dspec = data_spec(mesh, b)
-    losses, ms = [], []
-    torch.cuda.synchronize()
     zero_launches(kernels)
-    for i in range(MESH_TRAIN_STEPS):
-        batch = make_global_batch(data.batch(i), mesh, dspec, "cuda")
-        t0 = time.perf_counter()
-        params, opt, met = step_fn(params, opt, batch)
-        losses.append(float(met["ce"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
+    params, opt, losses, ms = mesh_train_steps(torch, cfg, mesh, seed)
     launches = read_launches(kernels)
+    data, dspec = SyntheticLM(cfg.vocab, s, b, seed=seed), data_spec(mesh, b)
     designs = read_designs(kernels)["flash_attention"]
     grads, _ = make_grad_fn(cfg, mesh, remat=True, microbatches=mb)(
         params, make_global_batch(data.batch(MESH_TRAIN_STEPS), mesh, dspec, "cuda"))
@@ -2547,6 +2665,252 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
         "paged_attention": serve["launches"]["paged_attention"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tooling (serving bench, cost counter, dry run)
+# ---------------------------------------------------------------------------
+
+BENCH_ARCH = "qwen3-8b"      # the serving bench at its published size
+BENCH_REQUESTS = 8           # serving_bench.run's traffic: 8 prompts of 16 tokens, 24 new
+SERVE_POOL = (16, 4)         # phase 5's engine: sets, set size
+SERVE_PAGE = 16              # phase 5's engine: tokens a page
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"), ("olmoe-1b-7b", "decode_32k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+
+
+def start_dryruns(out_dir: Path) -> list:
+    """``DRYRUN_CELLS``, each ``python -m repro_torch.launch.dryrun ...
+    --device cuda`` in a process of its own (a fake process group is
+    process-global), all started at once: ((arch, shape, mesh), process,
+    log)."""
+    import os
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src"), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = out_dir / f"dryrun_{arch}_{shape}_{mesh}.log"
+        with open(log, "w") as f:
+            procs.append(((arch, shape, mesh), subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                 shape, "--mesh", mesh, "--device", "cuda", "--out", str(out_dir)],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT), log))
+    return procs
+
+
+def finish_dryruns(procs: list, out_dir: Path, card: str) -> dict:
+    """Waits for ``start_dryruns``' processes (killing any still running
+    when one fails): each must exit 0; its per-device terms and trace
+    time."""
+    res = {}
+    try:
+        for (arch, shape, mesh), proc, log in procs:
+            try:
+                rc = proc.wait(timeout=DRYRUN_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            check(rc == 0, f"tooling: the dry run of {arch} {shape} {mesh} exited {rc}: "
+                  f"{log.read_text()[-2000:]}")
+            rec = json.loads((out_dir / f"{arch}_{shape}_{mesh}.json").read_text())
+            r = rec["roofline"]
+            print(f"[tooling] dry run {arch} x {shape} x {mesh} (torch {rec['torch']}, "
+                  f"{rec['chips']} fake ranks, the card's route: kernel calls "
+                  f"{rec['kernel_calls']}): exit 0, trace {rec['trace_s']:.1f} s; per device "
+                  f"{rec['flops_per_device']:.4e} FLOP, {rec['bytes_per_device']:.4e} B, "
+                  f"collectives {rec['collectives']['total_bytes']:.4e} B "
+                  f"{rec['collectives']['by_axis']}; derived H100 terms compute "
+                  f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
+                  f"collective {r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; args "
+                  f"{rec['memory']['argument_bytes'] / 2 ** 30:.2f} GiB a device (not measured "
+                  f"on {card})", flush=True)
+            res[f"{arch} {shape} {mesh}"] = rec
+    finally:
+        for _, proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return res
+
+
+def registration_host_us(torch, card: str) -> dict:
+    """Host µs per call the operator registration adds: ``wrapper_host_us``
+    of the paged (serve shape) and flash (qwen3-8b heads, S 512, bf16)
+    wrappers called directly, and through their public entries (``ops.*``,
+    the ``repro_torch`` operators; flash also through ``FlashAttention``),
+    in turns (direct, operator, operator, direct)."""
+    from repro_torch.kernels import flash_attention as flash_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as paged_mod
+
+    table, pool, lengths, _ = PAGED_TIMED["serve"]
+    q, kp, vp, tab, lens = timed_paged_inputs(torch, np.random.default_rng(0), table, pool,
+                                              lengths, 1)
+    fq, fk, fv = (torch.randn(sh, device="cuda").to(torch.bfloat16)
+                  for sh in ((1, 512, 32, 128), (1, 512, 8, 128), (1, 512, 8, 128)))
+    calls = {
+        "paged": (lambda: paged_mod.paged_attention(q, kp[0], vp[0], tab, lens),
+                  lambda: ops.paged_attention(q, kp[0], vp[0], tab, lens)),
+        "flash": (lambda: flash_mod.flash_attention(fq, fk, fv, causal=True),
+                  lambda: torch.ops.repro_torch.flash_attention(fq, fk, fv, True, 0, 0.0, 0)),
+    }
+    out = {}
+    for name, (direct, op) in calls.items():
+        d1, o1, o2, d2 = (wrapper_host_us(torch, fn) for fn in (direct, op, op, direct))
+        out[name] = {"direct_us": [d1, d2], "operator_us": [o1, o2],
+                     "added_us": (o1 + o2 - d1 - d2) / 2}
+    out["flash"]["function_us"] = wrapper_host_us(
+        torch, lambda: ops.flash_attention(fq, fk, fv, causal=True))
+    for name, t in out.items():
+        print(f"[tooling] {name} host time a call: wrapper called directly "
+              f"{t['direct_us'][0]:.2f} / {t['direct_us'][1]:.2f} us, through the repro_torch "
+              f"operator {t['operator_us'][0]:.2f} / {t['operator_us'][1]:.2f} us: the "
+              f"registration adds {t['added_us']:.2f} us"
+              + (f" (ops.flash_attention, with FlashAttention: {t['function_us']:.2f} us)"
+                 if name == "flash" else "") + f" on {card}", flush=True)
+    del q, kp, vp, fq, fk, fv
+    free_memory(torch)
+    return out
+
+
+def bench_flusher(torch, seed: int, kernels: dict, card: str) -> dict:
+    """(a) ``benchmarks/serving_bench.run`` at ``BENCH_ARCH``'s published
+    size, bf16, random weights from ``seed``: the same traffic with the
+    flusher on and off (a pool of 4 sets x 3 pages of 8 tokens, so rows are
+    preempted). Every request finishes, both runs emit the same tokens,
+    both preempt, and the paged and flash kernels were launched."""
+    from repro_torch.benchmarks import serving_bench
+
+    zero_launches(kernels)
+    r = serving_bench.run(BENCH_ARCH, full=True, device="cuda", weight_seed=seed,
+                          out_dir=ROOT / "chiprun_out")
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    free_memory(torch)
+    on, off = r["flusher_on"], r["flusher_off"]
+    for name, st in (("on ", on), ("off", off)):
+        print(f"[tooling] serving bench {BENCH_ARCH} ({r['config']['layers']} layers, bf16), "
+              f"flusher {name}: {st['done']}/{BENCH_REQUESTS} done, blocking offloads "
+              f"{st['blocking_offloads']}, clean evictions {st['clean_evictions']}, stale "
+              f"discards {st['stale_discards']}, offloads {st['offloads']}, fetches "
+              f"{st['fetches']}, preemptions {st['preemptions']}; {st['tokens_per_s']:.1f} "
+              f"tokens/s, median decode step {st['median_step_ms']:.2f} ms over "
+              f"{st['decode_steps']} steps on {card}", flush=True)
+    print(f"[tooling] blocking offloads the flusher took off the critical path: "
+          f"{r['blocking_offload_reduction']}; tokens identical: "
+          f"{on['outputs'] == off['outputs']}; launches {launches}", flush=True)
+    check(on["done"] == off["done"] == BENCH_REQUESTS,
+          f"tooling: {on['done']} / {off['done']} of {BENCH_REQUESTS} requests finished")
+    check(on["outputs"] == off["outputs"], "tooling: the flusher changed the emitted tokens")
+    check(on["preemptions"] > 0 and off["preemptions"] > 0,
+          "tooling: the serving bench preempted no row")
+    check(launches["paged_attention"] > 0 and launches["flash_attention"] > 0,
+          f"tooling: the serving bench did not launch both attention kernels: {launches}")
+    return {**r, "launches": launches}
+
+
+def roofline_ms(counter) -> dict:
+    """A one-card count's derived terms (``dryrun.roofline``) in ms."""
+    from repro_torch.launch import dryrun
+
+    terms = dryrun.roofline(counter.flops, counter.memory_bytes, {})
+    compute, memory = terms["compute_s"] * 1e3, terms["memory_s"] * 1e3
+    return {"flops": counter.flops, "bytes": counter.memory_bytes, "compute_ms": compute,
+            "memory_ms": memory, "bound_ms": max(compute, memory),
+            "bound_by": "operations" if compute >= memory else "bytes",
+            "kernel_calls": dict(counter.kernel_calls)}
+
+
+def counted_steps(torch, card: str, train_full: dict, serve: dict) -> dict:
+    """(b) ``launch/cost.py`` over two steps on fake tensors on the card, at
+    world 1: tinyllama-1.1b's train step at phase 10's shape (remat, its
+    microbatches) and qwen3-8b's paged decode step at phase 5's batch and
+    active rows, its table as wide as the pages of phase 5's first step's
+    longest row (fake lengths have no values, so the paged kernel's bytes
+    count every row at the whole table). Each one's terms and bound beside
+    the median that phase measured in this run. The train count must reach
+    phase 10's model FLOPs and the decode count ``decode_step_bytes``'
+    total, and the decode count must exceed that total by less than one
+    layer's weights: short, or a layer's worth over, means the counter lost
+    or invented work."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.serving.paged_model import init_pools, make_paged_decode_step
+    from repro_torch.tree import leaves
+
+    b, s, mb = TRAIN_FULL_SHAPE
+    cell = dryrun.count_cell("tinyllama-1.1b", ShapeConfig("phase10", s, b, "train"), None,
+                             device="cuda", microbatches=mb)
+    train = {**roofline_ms(cell["counter"]), "trace_s": cell["trace_s"],
+             "measured_ms": train_full["median_step_ms"],
+             "model_flops": train_full["model_flops_per_step"]}
+    cfg = get_config(BENCH_ARCH)
+    sets, ways = SERVE_POOL
+    first = serve["first_step"]
+    table = max(-(-(n + 1) // SERVE_PAGE) for n in first["lengths"])   # with the new key
+    mode = FakeTensorMode()
+    params = S.params_specs(cfg, "cuda", mode)
+    with mode:
+        pools = init_pools(cfg, num_pages=sets * ways + 1, page_size=SERVE_PAGE, max_batch=4,
+                           device="cuda")
+        i32 = dict(dtype=torch.int32, device="cuda")
+        args = (params, pools, torch.empty((4, 1), **i32), torch.empty((4,), **i32),
+                torch.empty((4, table), **i32),
+                torch.empty((first["active_rows"],), dtype=torch.long, device="cuda"))
+        t0 = time.perf_counter()
+        with torch.no_grad(), CostMode() as counter:
+            make_paged_decode_step(cfg, page_size=SERVE_PAGE)(*args)
+        trace_s = time.perf_counter() - t0
+    decode = {**roofline_ms(counter), "trace_s": trace_s,
+              "measured_ms": serve["median_step_ms"], "table_pages": table,
+              "step_bytes": sum(serve["step_bytes"].values()),
+              "layer_weight_bytes": sum(t.numel() * t.element_size()
+                                        for t in leaves(params["blocks"])) // cfg.n_layers}
+    out = {"train": train, "decode": decode}
+    for name, t in out.items():
+        t["measured_over_bound"] = t["measured_ms"] / t["bound_ms"]
+        print(f"[tooling] counted {name} step on fake tensors on the card ({t['trace_s']:.1f} s "
+              f"to trace): {t['flops']:.4e} FLOP, {t['bytes']:.4e} B, kernel calls "
+              f"{t['kernel_calls']}; derived terms compute {t['compute_ms']:.3f} ms, memory "
+              f"{t['memory_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms by {t['bound_by']}; "
+              f"measured median {t['measured_ms']:.2f} ms in this run = "
+              f"{t['measured_over_bound']:.2f}x the bound on {card}", flush=True)
+    print(f"[tooling] train count {train['flops']:.4e} FLOP vs phase 10's model FLOPs "
+          f"{train['model_flops']:.4e}; decode count {decode['bytes']:.4e} B (table of "
+          f"{table} pages) vs decode_step_bytes {decode['step_bytes']:.4e} B: over by "
+          f"{decode['bytes'] - decode['step_bytes']:.4e} B, one layer's weights "
+          f"{decode['layer_weight_bytes']:.4e} B", flush=True)
+    check(train["flops"] >= train["model_flops"],
+          "tooling: the train step's count is below its model FLOPs")
+    check(decode["bytes"] >= decode["step_bytes"],
+          "tooling: the decode step's count is below decode_step_bytes")
+    check(decode["bytes"] - decode["step_bytes"] < decode["layer_weight_bytes"],
+          "tooling: the decode step's count exceeds decode_step_bytes by a layer's weights")
+    return out
+
+
+def phase_tooling(torch, seed: int, kernels: dict, card: str, train_full: dict,
+                  serve: dict) -> dict:
+    """Phase 12: the operator registration's host time and (a)
+    ``bench_flusher``, both timed on the host with no other process of
+    this run busy; then (c) the dry-run cells start in their own processes,
+    (b) ``counted_steps`` runs beside them (it times nothing), and (c) waits
+    for the dry runs."""
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    host = registration_host_us(torch, card)
+    bench = bench_flusher(torch, seed, kernels, card)
+    procs = start_dryruns(out_dir)
+    try:
+        counted = counted_steps(torch, card, train_full, serve)
+    finally:
+        dry = finish_dryruns(procs, out_dir, card)
+    return {"registration_host_us": host, "bench": bench, "counted": counted, "dryrun": dry,
+            "launches": bench["launches"]}
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of each function in an nvcc ``-Xptxas -v`` log."""
     funcs, cur = {}, None
@@ -2612,11 +2976,15 @@ def main() -> int:
                         help="only check and time the attention backward "
                              "(time_attention_backward) with the port package found under SRC, "
                              "print it as one JSON line and exit")
+    probes.add_argument("--mesh-probe", metavar="SRC",
+                        help="only time phase 11's mesh train and decode steps (mesh_probe) "
+                             "with the port package found under SRC, print them as one JSON "
+                             "line and exit")
     probes.add_argument("--flush-probe", metavar="SRC",
                         help="only time the flush kernel (flush_probe) with the port package "
                              "found under SRC, print it as one JSON line and exit")
     args = ap.parse_args()
-    probe_src = args.decode_probe or args.flush_probe or args.backward_probe
+    probe_src = args.decode_probe or args.flush_probe or args.backward_probe or args.mesh_probe
     if probe_src:
         sys.path.insert(0, str(Path(probe_src).resolve()))
 
@@ -2640,7 +3008,7 @@ def main() -> int:
                "flush_scores": flush_mod.flush_scores}
     if probe_src:
         probe = (decode_probe if args.decode_probe else flush_probe if args.flush_probe
-                 else backward_probe)
+                 else mesh_probe if args.mesh_probe else backward_probe)
         try:
             print(json.dumps(probe(torch, args.seed, card)), flush=True)
         except SmokeFailure as e:
@@ -2674,6 +3042,8 @@ def main() -> int:
         # 11. the mesh path
         mesh = phase_mesh(torch, args.seed, kernels, card, train["full"],
                           families[MESH_SERVE[0]])
+        # 12. the tooling
+        tooling = phase_tooling(torch, args.seed, kernels, card, train["full"], serve)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2708,7 +3078,9 @@ def main() -> int:
          "prefill_decode_step_median_ms": prefill["decode_step_median_ms"],
          "prefill_decode_paged_device_ms_per_step": prefill["decode_paged_device_ms_per_step"],
          **family_launches("paged_attention"),
-         "mesh_phase_launches": mesh["launches"]["paged_attention"]},
+         "mesh_phase_launches": mesh["launches"]["paged_attention"],
+         "tooling_phase_launches": tooling["launches"]["paged_attention"],
+         "registration_host_us": tooling["registration_host_us"]["paged"]},
         {**common, "name": "flash_attention",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
@@ -2724,7 +3096,9 @@ def main() -> int:
          "exact_phase_launches": exact["flash_attention"], "ttft_ms": prefill["ttft_ms"],
          **family_launches("flash_attention"),
          "train_phase_launches": train["flash_launches"],
-         "mesh_phase_launches": mesh["launches"]["flash_attention"]},
+         "mesh_phase_launches": mesh["launches"]["flash_attention"],
+         "tooling_phase_launches": tooling["launches"]["flash_attention"],
+         "registration_host_us": tooling["registration_host_us"]["flash"]},
         {**common, "name": "flush_scores",
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
@@ -2742,7 +3116,7 @@ def main() -> int:
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
          "prefill": prefill, "families": families, "encdec_vision": encdec,
          "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families,
-         "train": train, "mesh": mesh},
+         "train": train, "mesh": mesh, "tooling": tooling},
         indent=1, default=str))
     print(json.dumps(line))
     print(smi)

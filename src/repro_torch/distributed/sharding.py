@@ -255,10 +255,17 @@ def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
 
 def constrain(x, mesh, spec: PartitionSpec):
     """``x`` redistributed to ``spec`` on ``mesh``, the port's
-    ``with_sharding_constraint``. A plain tensor stays as it is."""
+    ``with_sharding_constraint``. A plain tensor stays as it is, and so
+    does a DTensor that already has the placements when autograd does not
+    record it: a redistribute to the same placements moves nothing and
+    costs host time, where under autograd it also pins the gradient's
+    placements on the way back."""
     if not isinstance(x, DTensor):
         return x
-    return x.redistribute(mesh, placements(spec, mesh))
+    pl = placements(spec, mesh)
+    if tuple(pl) == x.placements and not (x.requires_grad and torch.is_grad_enabled()):
+        return x
+    return x.redistribute(mesh, pl)
 
 
 @contextlib.contextmanager
@@ -340,3 +347,27 @@ def contiguous_grad(x: torch.Tensor) -> torch.Tensor:
     out transposed (as the attention backward's dk comes), where plain
     PyTorch would copy."""
     return _ContiguousGrad.apply(x)
+
+
+class _GradInPlacements(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if isinstance(g, DTensor) and g.placements != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_in_placements(x):
+    """``x``, whose gradient is redistributed to ``x``'s own placements on
+    its way back (a plain tensor as it is). DTensor hands a matmul's input
+    gradient back in the placements its backward strategy picks, which a
+    view in the backward may not take: merged attention heads (B, S, H*hd)
+    replicated over ``model``, their gradient cut over it, cannot be split
+    back into H < 16 heads."""
+    return _GradInPlacements.apply(x) if isinstance(x, DTensor) else x
+

@@ -11,11 +11,16 @@ or raises.
 ``flash_attention.launches`` counts the launches of this process, and
 ``flash_attention.launches_by_design`` splits them by design, so a run can
 show that its main path went through the kernel it expects.
+
+``cost`` is the work a call needs (``pairs`` of query and key the masks
+leave valid): the bound of ``chip_smoke.py`` and the count of
+``launch/cost.py`` both read it.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -36,6 +41,29 @@ def _kernel():
         _design_fn = _build.bind("flash_attention", "repro_flash_attention_design",
                                  [ctypes.c_int, ctypes.c_int])
     return _fn
+
+
+def pairs(sq: int, skv: int, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the masks leave valid: the work of one head.
+    Query row i sits at position p = i + q_offset and sees keys
+    max(0, p - window + 1) .. min(p, skv - 1) (either end open when its mask
+    is off); counted row by row in closed form, so a 32k prefill needs no
+    (Sq, Skv) mask."""
+    p = np.arange(sq, dtype=np.int64) + q_offset
+    hi = np.minimum(p, skv - 1) if causal else np.full(sq, skv - 1, np.int64)
+    lo = np.maximum(p - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def cost(q_shape, kv_shape, itemsize: int, *, causal: bool = True, window: int = 0,
+         q_offset: int = 0) -> dict:
+    """The work one call needs, from shapes: ``flops`` = 4 B H hd x
+    ``pairs`` (q.k and p.v, 2 each a pair and head dim); ``bytes`` = q, k, v
+    read once and the output written once, ``itemsize`` bytes an element."""
+    b, sq, h, hd = q_shape
+    skv, kvh = kv_shape[1], kv_shape[2]
+    return {"flops": 4 * b * h * hd * pairs(sq, skv, causal, window, q_offset),
+            "bytes": itemsize * (2 * b * sq * h * hd + 2 * b * skv * kvh * hd)}
 
 
 def _check(q, k, v, window, q_offset):

@@ -11,6 +11,9 @@ raises.
 ``flush_scores.launches`` counts the launches of this process, and
 ``flush_scores.launches_by_design`` splits them by design, so a run can
 show that its main path went through the kernel it expects.
+
+``cost`` is the work a call needs: the bound of ``chip_smoke.py`` and the
+count of ``launch/cost.py`` both read it.
 """
 from __future__ import annotations
 
@@ -33,6 +36,13 @@ def _kernel():
                           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
         _design_fn = _build.bind("flush_score", "repro_flush_scores_design", [ctypes.c_int])
     return _fn
+
+
+def cost(num_sets: int, set_size: int) -> dict:
+    """The work one call needs: ``bytes`` = hits (int32), valid (bool) and
+    the scores (int32) of every slot, 9 bytes a slot, and the clock, 4
+    bytes a set; ``flops`` 0 (integer compares, no floating point)."""
+    return {"flops": 0, "bytes": num_sets * set_size * (4 + 1 + 4) + num_sets * 4}
 
 
 def _check(hits, clock, valid):

@@ -1,14 +1,24 @@
-"""Public kernel entry points, dispatched on the tensors' device.
+"""Public kernel entry points, each a PyTorch operator of the ``repro_torch``
+namespace (``torch.ops.repro_torch.*``), dispatched on the tensors' device.
 
-CUDA tensors go to the hand-written Hopper kernel, which is built at first
-use and raises if it cannot build or launch. CPU tensors go to the plain
-PyTorch version in ``ref``; that is the only way the plain version is
-reached from here. Importing this module builds nothing.
+Each operator has three implementations:
+  * CUDA: the hand-written Hopper kernel's wrapper, which builds the kernel
+    at first use, launches it (and counts the launch) or raises;
+  * CPU: the plain PyTorch version in ``ref``, the only way the plain
+    version is reached from here;
+  * fake: the output's shape and dtype, so the kernels trace under
+    ``FakeTensorMode`` (shape-only dry runs, ``launch/dryrun.py``) as a
+    Pallas call traces under ``jax.eval_shape``, and a counting dispatch
+    mode (``launch/cost.py``) sees each call as one operator, which it
+    charges by the kernel's ``cost`` formula.
+The operators are defined with ``torch.library.Library`` and ``impl``
+(``torch.library.custom_op`` adds more host time per call). Importing this
+module registers them and builds nothing.
 
-Flash attention has a gradient: ``FlashAttention`` runs the kernel (or, on
-CPU tensors, the plain version) forward and ``ref.flash_attention_bwd``
-backward. The JAX package has no backward kernel (its training gradient is
-XLA's autodiff of the jnp attention), so the backward is PyTorch ops.
+Flash attention has a gradient: ``FlashAttention`` runs the operator
+forward and ``ref.flash_attention_bwd`` backward. The JAX package has no
+backward kernel (its training gradient is XLA's autodiff of the jnp
+attention), so the backward is PyTorch ops.
 """
 from __future__ import annotations
 
@@ -21,22 +31,73 @@ from . import paged_attention as _paged
 from .ref import (flash_attention_bwd, flash_attention_ref, flush_scores_ref,
                   paged_attention_ref)
 
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+            "float softcap, int q_offset) -> Tensor")
+_LIB.define("paged_attention(Tensor q, Tensor k_pages, Tensor v_pages, Tensor page_table, "
+            "Tensor lengths, float softcap) -> Tensor")
+_LIB.define("flush_scores(Tensor hits, Tensor clock, Tensor valid) -> Tensor")
+
+
+def _flash_cuda(q, k, v, causal, window, softcap, q_offset):
+    return _flash.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap,
+                                  q_offset=q_offset)
+
+
+def _flash_cpu(q, k, v, causal, window, softcap, q_offset):
+    return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                               q_offset=q_offset)
+
+
+def _paged_cuda(q, k_pages, v_pages, page_table, lengths, softcap):
+    return _paged.paged_attention(q, k_pages, v_pages, page_table, lengths, softcap=softcap)
+
+
+def _paged_cpu(q, k_pages, v_pages, page_table, lengths, softcap):
+    return paged_attention_ref(q, k_pages, v_pages, page_table, lengths, softcap=softcap)
+
+
+def _flush_cpu(hits, clock, valid):
+    return flush_scores_ref(hits, clock, valid)
+
+
+_LIB.impl("flash_attention", _flash_cuda, "CUDA")
+_LIB.impl("flash_attention", _flash_cpu, "CPU")
+_LIB.impl("paged_attention", _paged_cuda, "CUDA")
+_LIB.impl("paged_attention", _paged_cpu, "CPU")
+_LIB.impl("flush_scores", _flush.flush_scores, "CUDA")
+_LIB.impl("flush_scores", _flush_cpu, "CPU")
+
+
+@torch.library.register_fake("repro_torch::flash_attention", lib=_LIB)
+def _flash_fake(q, k, v, causal, window, softcap, q_offset):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::paged_attention", lib=_LIB)
+def _paged_fake(q, k_pages, v_pages, page_table, lengths, softcap):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::flush_scores", lib=_LIB)
+def _flush_fake(hits, clock, valid):
+    return torch.empty_like(hits)
+
 
 class FlashAttention(torch.autograd.Function):
-    """Forward: the Hopper flash kernel on CUDA tensors (it launches or
-    raises; a remat recompute launches it again), the plain version on CPU
-    tensors. Saves q, k, v and the output. Backward:
-    ``ref.flash_attention_bwd``, f32 math in chunks of keys, under the
-    profiler range ``flash_attention_backward``. Under ``torch.no_grad`` it is the forward
-    alone, so serving launches the kernel exactly as a direct call."""
+    """Forward: the ``flash_attention`` operator (on CUDA tensors the Hopper
+    kernel, which launches or raises; a remat recompute launches it again;
+    on CPU tensors the plain version). Saves q, k, v and the output.
+    Backward: ``ref.flash_attention_bwd``, f32 math in chunks of keys, under
+    the profiler range ``flash_attention_backward``. Under ``torch.no_grad``
+    it is the forward alone, so serving launches the kernel exactly as a
+    direct call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset):
-        kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
-        out = (_flash.flash_attention(q, k, v, **kw) if q.is_cuda
-               else flash_attention_ref(q, k, v, **kw))
+        out = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, softcap, q_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.kw = kw
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         return out
 
     @staticmethod
@@ -52,21 +113,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, q_offset: int = 0):
     """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd) -> (B, Sq, H, hd), with a
     gradient (``FlashAttention``)."""
-    return FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
+    return FlashAttention.apply(q, k, v, causal, int(window), float(softcap), int(q_offset))
 
 
 def flush_scores(hits, clock, valid):
     """hits: (num_sets, set_size) int32; clock: (num_sets,) int32; valid:
     (num_sets, set_size) bool -> (num_sets, set_size) int32, -1 invalid."""
-    if hits.is_cuda:
-        return _flush.flush_scores(hits, clock, valid)
-    return flush_scores_ref(hits, clock, valid)
+    return torch.ops.repro_torch.flush_scores(hits, clock, valid)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float = 0.0):
     """q: (B, H, hd); k/v_pages: (P, page, KV, hd); page_table: (B, max_pages)
     int32; lengths: (B,) int32 -> (B, H, hd)."""
-    if q.is_cuda:
-        return _paged.paged_attention(q, k_pages, v_pages, page_table, lengths,
-                                      softcap=softcap)
-    return paged_attention_ref(q, k_pages, v_pages, page_table, lengths, softcap=softcap)
+    return torch.ops.repro_torch.paged_attention(q, k_pages, v_pages, page_table, lengths,
+                                                 float(softcap))

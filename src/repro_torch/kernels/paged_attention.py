@@ -17,6 +17,9 @@ kernel each), ``paged_attention.combine_launches`` (the merge kernel, which
 runs when a plan has more than one split) and ``paged_attention.splits``
 (splits launched, summed over calls); ``paged_attention.last_plan`` is the
 plan of the latest call.
+
+``cost`` is the work a call needs: the bound of ``chip_smoke.py`` and the
+count of ``launch/cost.py`` both read it.
 """
 from __future__ import annotations
 
@@ -83,6 +86,30 @@ def _blocks(batch: int, kv_heads: int, group: int, n_splits: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cost(q_shape, pages_shape, table_shape, itemsize: int, lengths=None) -> dict:
+    """The work one call needs, from shapes and the rows' key counts
+    ``lengths`` (ints): ``bytes`` = the K and V rows of every row's keys
+    read once, q read and the output written, the table entries of the
+    whole pages holding those keys and the lengths (int32); ``flops`` =
+    4 H hd x the keys (q.k and p.v). ``lengths`` None (a fake tensor has no
+    values to read) counts every row's whole table, the most a call can
+    need."""
+    b, h, hd = q_shape
+    _, page, kvh, _ = pages_shape
+    if lengths is None:
+        lengths = [table_shape[1] * page] * b
+    keys = sum(int(n) for n in lengths)
+    entries = sum(-(-int(n) // page) for n in lengths)
+    return {"flops": 4 * h * hd * keys,
+            "bytes": kv_bytes(lengths, kvh, hd, itemsize) + 2 * b * h * hd * itemsize
+            + entries * 4 + b * 4}
+
+
+def kv_bytes(lengths, kv_heads: int, head_dim: int, itemsize: int) -> int:
+    """Bytes of the K and V rows of every row's ``lengths`` keys, read once."""
+    return sum(int(n) for n in lengths) * kv_heads * head_dim * 2 * itemsize
 
 
 def _check(q, k_pages, v_pages, page_table, lengths):

@@ -19,11 +19,12 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (P, contiguous_grad, dp_axes, dp_size, placements,
+from repro_torch.distributed.sharding import (P, contiguous_grad, dp_axes, dp_size,
+                                              grad_in_placements, placements,
                                               replicate)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_shape
@@ -67,9 +68,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     inv = rope_freqs(hd, theta, x.device)                        # (hd/2,)
     if mrope_sections:
         assert positions.dim() == 3, "M-RoPE needs (B, 3, S) positions"
-        sec_id = torch.repeat_interleave(
-            torch.arange(len(mrope_sections), device=x.device),
-            torch.tensor(mrope_sections, device=x.device))       # (hd/2,)
+        # section i's index repeated over its width, built on the host so
+        # the shape never depends on a tensor's values (fake tensors trace it)
+        sec_id = torch.tensor([i for i, n in enumerate(mrope_sections) for _ in range(n)],
+                              device=x.device)                   # (hd/2,)
         pos = positions.float()[:, sec_id, :]                    # (B, hd/2, S)
         angles = pos.transpose(1, 2) * inv[None, None, :]        # (B, S, hd/2)
     else:
@@ -227,6 +229,21 @@ def local_kv_heads(kv_heads: int, mesh) -> int:
     return kv_heads // tp if kv_heads % tp == 0 else kv_heads
 
 
+def split_heads(x, heads: int, hd: int):
+    """(..., heads * hd) -> (..., heads, hd). A DTensor whose last dim is
+    cut over a mesh dim that does not divide ``heads`` (tinyllama's 4 KV
+    heads on a 16-wide ``model`` axis) is first gathered on that mesh dim:
+    DTensor cannot cut one mesh dim over two tensor dims, where GSPMD tiles
+    heads and head_dim. The heads then stay replicated over it, as
+    ``head_placements`` has them."""
+    if isinstance(x, DTensor):
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == x.ndim - 1 and heads % n else p
+              for p, n in zip(x.placements, x.device_mesh.shape)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], heads, hd)
+
+
 def local_heads(x, mesh, kv_heads: int):
     """This rank's heads of a (B, S, heads, hd) DTensor, every batch row, as
     a plain tensor (a cache write's operand); a plain tensor as it is."""
@@ -255,10 +272,10 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
     ``local_map``."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, s, h, hd)
+    q = split_heads(x @ params["wq"], h, hd)
     if kv_override is None:
-        k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-        v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+        k = split_heads(x @ params["wk"], kvh, hd)
+        v = split_heads(x @ params["wv"], kvh, hd)
     else:
         k, v = kv_override
     if cfg.qk_norm:
@@ -279,16 +296,15 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
         attend = local_map(lambda *qkv: core(*map(contiguous_grad, qkv)), out_placements=pl,
                            in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
     out = attend(q, k, v)
-    return out.reshape(b, s, h * hd) @ params["wo"]
+    return grad_in_placements(out.reshape(b, s, h * hd)) @ params["wo"]
 
 
 def project_kv(x, params, cfg: ModelConfig, positions):
     """K/V projections only (the prefill cache write, the cross-attention
     memory)."""
-    b, s, _ = x.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (x @ params["wk"]).reshape(b, s, kvh, hd)
-    v = (x @ params["wv"]).reshape(b, s, kvh, hd)
+    k = split_heads(x @ params["wk"], kvh, hd)
+    v = split_heads(x @ params["wv"], kvh, hd)
     if cfg.qk_norm:
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
     if cfg.rope_theta and positions is not None:
@@ -333,7 +349,7 @@ def decode_cross_attention(x, params, cfg: ModelConfig, kv) -> torch.Tensor:
     query tile idle)."""
     b = x.shape[0]
     h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ params["wq"]).reshape(b, 1, h, hd)
+    q = split_heads(x @ params["wq"], h, hd)
     skv = kv["k"].shape[1]
     out = decode_attention(q, kv["k"], kv["v"],
                            lengths=torch.full((b,), skv, dtype=torch.int32, device=x.device))

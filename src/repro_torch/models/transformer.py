@@ -286,14 +286,14 @@ def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, mesh=None):
     in JAX."""
     if spec.ffn == "mlp":
         h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
-        h = L.mlp(h, p["mlp"], cfg.act)
+        h = _constrain_batch(L.mlp(h, p["mlp"], cfg.act), mesh)
         if cfg.post_norms:
             h = L.rmsnorm(h, p["ffn_post_norm"], cfg.norm_eps)
         return x + h, None
     if spec.ffn == "moe":
         h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
         h, losses = moe_ffn(h, p["moe"], cfg, mesh=mesh)
-        return x + h, losses
+        return x + _constrain_batch(h, mesh), losses
     return x, None
 
 
@@ -308,14 +308,15 @@ def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross
                                   window=spec.window, causal=True, mesh=mesh)
     else:
         h = replicated(mamba_chunked, mesh, h, p["attn"], cfg)
+    h = _constrain_batch(h, mesh)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
     x = x + h
     if cross_kv is not None:
-        h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
+        h = _constrain_batch(L.rmsnorm(x, p["cross_norm"], cfg.norm_eps), mesh)
         h = L.multihead_attention(h, p["cross"], cfg, positions=None, kv_override=cross_kv,
                                   causal=False, mesh=mesh)
-        x = x + h
+        x = x + _constrain_batch(h, mesh)
     return apply_ffn(x, p, spec, cfg, mesh)
 
 
@@ -340,11 +341,11 @@ def _encoder_forward(params, frames, cfg: ModelConfig, mesh=None):
     for l in range(cfg.encoder_layers):
         p = layer_params(enc["blocks"], l)
         x = _constrain_batch(x, mesh)
-        h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-        x = x + L.multihead_attention(h, p["attn"], cfg, positions=None, causal=False,
-                                      mesh=mesh)
-        h = L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps)
-        x = x + L.mlp(h, p["mlp"], cfg.act)
+        h = _constrain_batch(L.rmsnorm(x, p["norm"], cfg.norm_eps), mesh)
+        x = x + _constrain_batch(L.multihead_attention(h, p["attn"], cfg, positions=None,
+                                                       causal=False, mesh=mesh), mesh)
+        h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
+        x = x + _constrain_batch(L.mlp(h, p["mlp"], cfg.act), mesh)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -556,9 +557,9 @@ def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions, mes
     ``init_decode_cache(mesh=)``)."""
     b = x.shape[0]
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, 1, h, hd)
-    k = (x @ p["wk"]).reshape(b, 1, kvh, hd)
-    v = (x @ p["wv"]).reshape(b, 1, kvh, hd)
+    q = L.split_heads(x @ p["wq"], h, hd)
+    k = L.split_heads(x @ p["wk"], kvh, hd)
+    v = L.split_heads(x @ p["wv"], kvh, hd)
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)

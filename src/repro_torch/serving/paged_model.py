@@ -73,9 +73,9 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
     def attn_sublayer(x, p, k_pool, v_pool, rows, pids, offs, page_table, lengths1,
                       positions):
         b = x.shape[0]
-        q = (x @ p["wq"]).reshape(b, 1, h, hd)
-        k = (x @ p["wk"]).reshape(b, 1, kvh, hd)
-        v = (x @ p["wv"]).reshape(b, 1, kvh, hd)
+        q = L.split_heads(x @ p["wq"], h, hd)
+        k = L.split_heads(x @ p["wk"], kvh, hd)
+        v = L.split_heads(x @ p["wv"], kvh, hd)
         if cfg.qk_norm:
             q = L.rmsnorm(q, p["q_norm"], cfg.norm_eps)
             k = L.rmsnorm(k, p["k_norm"], cfg.norm_eps)

@@ -7,7 +7,8 @@ Once per module, two programs run in subprocesses (this file, as a script):
     refuses ``Explicit`` axes). It draws the inputs (weights from
     ``init_params``, batches from numpy) and computes the expected outputs:
     the sharded train step (``make_train_step(cfg, mesh)``, 2 steps, fp32)
-    of reduced qwen3-8b and olmoe-1b-7b ("ep" and "tp") on (data 2, model 2),
+    of reduced qwen3-8b (with 2 KV heads, and with 1, which the model axis
+    does not divide) and olmoe-1b-7b ("ep" and "tp") on (data 2, model 2),
     ``moe_ffn`` over that mesh at a capacity that drops, the compressed
     reduce under ``shard_map`` on (pod 2, data 2, model 1), each device's
     slice of ``NamedSharding``s, and a JAX checkpoint.
@@ -33,8 +34,13 @@ import numpy as np
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-TRAIN = {"qwen3-8b": ("qwen3-8b", None), "olmoe-ep": ("olmoe-1b-7b", "ep"),
-         "olmoe-tp": ("olmoe-1b-7b", "tp")}
+# name -> (arch, overrides of the reduced config); "qwen3-kv1": 1 KV head on
+# a model axis of 2, so K/V are gathered over it (``layers.split_heads``),
+# the heads replicated, and the merged heads' gradient is redistributed
+# (``sharding.grad_in_placements``)
+TRAIN = {"qwen3-8b": ("qwen3-8b", {}), "qwen3-kv1": ("qwen3-8b", {"n_kv_heads": 1}),
+         "olmoe-ep": ("olmoe-1b-7b", {"moe_parallel": "ep"}),
+         "olmoe-tp": ("olmoe-1b-7b", {"moe_parallel": "tp"})}
 B, S, STEPS = 4, 16, 2
 HP = dict(peak_lr=1e-2, warmup=0, total_steps=10)
 MOE_B, MOE_S, MOE_CAPACITY = 4, 8, 0.5            # capacity 0.5: assignments drop
@@ -46,9 +52,8 @@ TIMEOUT = 600
 
 
 def _train_cfg(get_config, reduced, name):
-    arch, mode = TRAIN[name]
-    cfg = reduced(get_config(arch))
-    return dataclasses.replace(cfg, moe_parallel=mode) if mode else cfg
+    arch, overrides = TRAIN[name]
+    return dataclasses.replace(reduced(get_config(arch)), **overrides)
 
 
 def _moe_cfg(get_config, reduced, mode):

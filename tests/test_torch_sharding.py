@@ -124,3 +124,33 @@ def test_spec_helpers(case):
     tree has the params' structure, ``data_spec`` equals JAX's, the
     production meshes' shapes, and a spec's DTensor placements."""
     case()
+
+
+def test_constrain_skips_only_a_redistribute_that_moves_nothing():
+    """On a (2, 2) mesh of a fake group: ``constrain`` hands back the same
+    DTensor when it already has the placements and no gradient is
+    recorded; under autograd it still redistributes (the gradient's
+    placements are pinned on the way back), and a change of placements
+    always does."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.dryrun import start_fake_group
+
+    start_fake_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        spec = S.P("data", None)
+        x = distribute_tensor(torch.zeros(4, 8), mesh, S.placements(spec, mesh),
+                              src_data_rank=None)
+        assert S.constrain(x, mesh, spec) is x
+        with torch.no_grad():
+            assert S.constrain(x.requires_grad_(), mesh, spec) is x
+        y = S.constrain(x, mesh, spec)
+        assert y is not x and y.grad_fn is not None
+        with torch.no_grad():
+            z = S.constrain(x, mesh, S.P(None, "model"))
+        assert z.placements == tuple(S.placements(S.P(None, "model"), mesh))
+    finally:
+        dist.destroy_process_group()
