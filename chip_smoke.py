@@ -103,7 +103,10 @@ last line:
               gradient leaf within 1e-5 relative L2 and nonzero through the
               kernel, flash launches = attention calls x 2 (forward and the
               recompute) x microbatches, all simt; tinyllama in bf16: 1e-2,
-              2e-2, all wgmma; one attention call at tinyllama's training
+              2e-2, all wgmma; ``remat="dots"`` (JAX's dots_saveable as a
+              selective checkpoint) against remat=True for tinyllama at 2 fp32
+              layers: every gradient leaf within 1e-5 relative L2, flash
+              launched by the forward only; one attention call at tinyllama's training
               shape (4 x 2,048, bf16): the Function's output and dq, dk, dv
               held to the plain version's and its autograd's (2e-2, 1e-2
               relative L2) and timed beside SDPA's backward; then
@@ -115,7 +118,9 @@ last line:
               rerun from step 9's restore within 1e-3 relative; the median
               step, tokens/s, the model-FLOP share, torch.profiler's busy share
               and device ms by flash forward, attention backward, GEMMs and
-              optimizer, the peak memory;
+              optimizer, the peak memory; then 3 more steps under
+              ``remat="dots"``: their median and peak beside remat=True's (the
+              trained state is kept for phase 13);
  11. mesh     the distribution path on the one card, at world 1 (NCCL refuses
               two ranks on one device): an NCCL group of one over a FileStore
               under build/ and ``make_host_mesh``'s (1, 1) mesh; tinyllama-1.1b
@@ -132,7 +137,13 @@ last line:
               mesh route (``make_paged_decode_step(mesh=)``, the MoE and the
               paged kernel under ``local_map``), its first step's logits held
               to the unsharded step's (3e-2 relative L2, replayed routing),
-              the median step beside phase 8's;
+              the median step beside phase 8's; qwen3-8b at its published size
+              (bf16) through ``prefill(mesh=)`` and 16 greedy
+              ``decode_step(mesh=)``s on the cache ``cache_specs`` places: the
+              unsharded route's tokens, both medians; mamba2-780m's train step
+              through ``mesh=`` (the Mamba2 scan under ``local_map`` on a rank's
+              rows and heads), 3 steps of 4 x 512: losses within 1e-5 relative
+              of the unsharded step's, both medians;
  12. tooling  the dry-run and cost tooling and the serving bench: (a)
               ``benchmarks/serving_bench.run`` with qwen3-8b at its published
               size, bf16, flusher on and then off (8 requests of 16 tokens,
@@ -147,15 +158,24 @@ last line:
               beside the medians phases 10 and 5 measured, the train count at
               least phase 10's model FLOPs and the decode count at least
               ``decode_step_bytes``; (c) ``launch/dryrun.py`` in a process of
-              its own per cell, tinyllama-1.1b train_4k on the (16, 16) mesh
-              and olmoe-1b-7b decode_32k on (2, 16, 16), the card's route on
-              this machine's torch: each exits 0; and the host time the
-              kernels' operator registration adds to a paged and a flash
-              call;
- 13. the kernels line (JSON), the device line, and the result line.
+              its own per cell, tinyllama-1.1b train_4k on the (16, 16) mesh,
+              olmoe-1b-7b decode_32k on (2, 16, 16) (its argument bytes
+              beside those of the cache with every row on every rank) and
+              mamba2-780m train_4k on (16, 16), the card's route on this
+              machine's torch: each exits 0, with its useful-FLOP ratio; and
+              the host time the kernels' operator registration adds to a
+              paged and a flash call;
+ 13. trace    the trace bridge into the SSD-array simulator: the port's
+              ``run_fleet`` at ``FleetConfig()`` and --seed (rows,
+              ``trace_digest``, seconds), and the trace that ``attach_ckpt``
+              recorded of phase 10's final save of the trained state (one row
+              a chunk, the digest, the save ms); both traces in
+              ``build/traces/*.npz``;
+ 14. the kernels line (JSON), the device line, and the result line.
 
-The kernel launch counts are set to 0 just before each run of phases 4-12
-and read just after, to show each path ran through its kernels.
+Each phase prints its seconds. The kernel launch counts are set to 0 just
+before each run of phases 4-13 and read just after, to show each path ran
+through its kernels.
 
 With ``--decode-probe SRC`` it runs none of the phases: it takes the port
 package under SRC (``src`` of this checkout or of an earlier commit) and
@@ -168,10 +188,11 @@ SASS of its library (``cuobjdump -sass``; the text beside the library).
 ``--backward-probe SRC`` does the same for the attention backward at
 tinyllama's training shape (``time_attention_backward``: the Function's
 output and gradients held to the plain version's, then timed).
-``--mesh-probe SRC`` does the same for phase 11's two timed runs at world 1
-(``mesh_probe``): tinyllama's mesh train step and olmoe-1b-7b's mesh decode
-step, with the batch constraints (``transformer._constrain_batch``) each
-step makes and their host µs a call.
+``--mesh-probe SRC`` does the same for phase 11's timed runs at world 1
+(``mesh_probe``): tinyllama's mesh train step, olmoe-1b-7b's mesh decode
+step and qwen3-8b's dense decode unsharded and through ``mesh=``
+(``mesh_decode``), with the batch constraints
+(``transformer._constrain_batch``) each step makes and their host µs a call.
 
 It needs a CUDA card, and exits non-zero when there is none. It imports
 nothing of JAX or of the JAX package.
@@ -299,6 +320,19 @@ VISION_LAYERS, VISION_TEXT = 24, 64
 
 class SmokeFailure(Exception):
     pass
+
+
+PHASE_SECONDS: dict = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds printed and kept in ``PHASE_SECONDS``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {PHASE_SECONDS[name]:.1f} s", flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -2021,6 +2055,8 @@ TRAIN_TOLS = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2e-2)}   # loss rel, g
 TRAIN_RESUME_TOL = 1e-3     # resumed losses: cuBLAS and the embedding's atomics reorder sums
 TRAIN_ATTN_SHAPE = (4, 2048, 32, 4, 64)   # one microbatch's attention call: B, S, H, KV, hd
 TRAIN_ATTN_GRAD_TOL = 1e-2   # relative L2 of dq, dk, dv in bf16 (tests/test_torch_cuda.py)
+TRAIN_DOTS_TOL = 1e-5        # remat="dots" gradients against remat=True's, relative L2, fp32
+TRAIN_DOTS_STEPS = 3         # full-size steps timed under remat="dots" (the first one warms)
 
 
 def train_config(arch: str, dtype: str):
@@ -2119,6 +2155,82 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
     return res
 
 
+def train_dots(torch, seed: int, kernels: dict) -> dict:
+    """``remat="dots"`` (JAX's ``dots_saveable`` as a selective checkpoint)
+    against ``remat=True`` on tinyllama-1.1b at 2 layers of its published
+    width, fp32, through the kernel: one step's gradient (``make_grad_fn``,
+    ``TRAIN_EXACT_SHAPE``), every leaf within ``TRAIN_DOTS_TOL`` relative
+    L2, and the flash launches: the forward alone under ``"dots"`` (its
+    saved output is not recomputed), forward and recompute under ``True``."""
+    from repro_torch.launch.steps import make_grad_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten_with_paths
+
+    cfg = train_config("tinyllama-1.1b", "float32")
+    b, s, mb = TRAIN_EXACT_SHAPE
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+    batch = train_batch(cfg, seed, b, s, 0)
+    out = {}
+    for remat in (True, "dots"):
+        zero_launches(kernels)
+        grads, metrics = make_grad_fn(cfg, remat=remat, microbatches=mb)(params, batch)
+        torch.cuda.synchronize()
+        out[remat] = (flatten_with_paths(grads), float(metrics["ce"]),
+                      read_launches(kernels)["flash_attention"])
+    (full, ce_full, n_full), (dots, ce_dots, n_dots) = out[True], out["dots"]
+    rel = {k: rel_l2(dots[k], full[k]) for k in full}
+    worst = max(rel, key=rel.get)
+    want = (attn_layers(cfg) * mb, flash_per_microbatch(cfg) * mb)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s, "microbatches": mb,
+           "ce_dots": ce_dots, "ce_remat": ce_full, "max_grad_rel_l2": rel[worst],
+           "worst_leaf": worst, "flash_launches": {"dots": n_dots, "remat": n_full},
+           "flash_expected": {"dots": want[0], "remat": want[1]}}
+    print(f"[train] remat='dots' vs remat=True, {cfg.name} fp32 {cfg.n_layers} layers, batch "
+          f"{b} x {s}, {mb} microbatches: ce {ce_dots:.6f} vs {ce_full:.6f}; {len(rel)} leaves, "
+          f"max rel L2 {rel[worst]:.2e} ({worst}; tol {TRAIN_DOTS_TOL:g}); flash launches "
+          f"{n_dots} under 'dots' (expected {want[0]}: no recompute), {n_full} under True "
+          f"(expected {want[1]})", flush=True)
+    check(rel[worst] <= TRAIN_DOTS_TOL, f"train: remat='dots' gradient leaf {worst} differs "
+          f"from remat=True's by {rel[worst]:.2e} relative L2")
+    check((n_dots, n_full) == want, f"train: flash launches {n_dots} / {n_full} under 'dots' / "
+          f"True, expected {want}")
+    del params, batch, out, full, dots
+    free_memory(torch)
+    return res
+
+
+def dots_steps(torch, cfg, params, opt, data, first: int, kernels: dict) -> dict:
+    """``TRAIN_DOTS_STEPS`` steps of the full-size train step under
+    ``remat="dots"`` on ``data``'s batches from ``first``, continuing
+    ``params`` and ``opt``: their ms (the median of those after the first),
+    the peak memory and the flash launches (the forward only: its saved
+    output is not recomputed)."""
+    from repro_torch.data import to_device
+    from repro_torch.launch.steps import make_train_step
+
+    b, s, mb = TRAIN_FULL_SHAPE
+    step_fn = make_train_step(cfg, remat="dots", microbatches=mb, total_steps=TRAIN_STEPS)
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(kernels)
+    ms, losses = [], []
+    for i in range(first, first + TRAIN_DOTS_STEPS):
+        batch = to_device(data.batch(i), "cuda")
+        t0 = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        losses.append(float(met["ce"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = read_launches(kernels)["flash_attention"]
+    want = cfg.n_layers * mb * TRAIN_DOTS_STEPS
+    res = {"step_ms": ms, "median_step_ms": statistics.median(ms[1:]), "losses": losses,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "flash_launches": launches,
+           "flash_expected": want}
+    check(all(np.isfinite(losses)), "train: a loss under remat='dots' is not finite")
+    check(launches == want, f"train: {launches} flash launches in {TRAIN_DOTS_STEPS} steps "
+          f"under remat='dots', expected {want}")
+    return res
+
+
 def train_profile(torch, run, steps: int) -> dict:
     """Device ms per step under torch.profiler, split into the flash
     kernel's forward launches, the attention backward (the range
@@ -2163,7 +2275,9 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     ``TRAIN_CKPT_STEP`` and at the end; the end's restored into freshly drawn
     weights equals the trained state bitwise; steps after ``TRAIN_CKPT_STEP``
     rerun from its restore give the same losses (``TRAIN_RESUME_TOL``), the
-    last ``TRAIN_PROFILED`` under torch.profiler."""
+    last ``TRAIN_PROFILED`` under torch.profiler; then ``dots_steps``. The
+    final save goes through ``ServingTraceRecorder.attach_ckpt``: its trace
+    (one write row a chunk) is left in ``ckpt_trace`` for phase 13."""
     import shutil
 
     from repro_torch.checkpoint import CheckpointManager
@@ -2172,7 +2286,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
-    from repro_torch.tree import leaves
+    from repro_torch.serving.trace_shim import ServingTraceRecorder
+    from repro_torch.tree import flatten_with_paths, leaves
 
     cfg = get_config("tinyllama-1.1b")
     b, s, mb = TRAIN_FULL_SHAPE
@@ -2217,6 +2332,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     t0 = time.perf_counter()
     committed = ckpt.wait_for_commit(TRAIN_CKPT_STEP, 600)
     save["wait_commit_ms"] = (time.perf_counter() - t0) * 1e3
+    # the final save is recorded: its writes are pumped on this thread by drain
+    rec = ServingTraceRecorder(ckpt.n_targets).attach_ckpt(ckpt)
     t0 = time.perf_counter()
     ckpt.save_async(TRAIN_STEPS - 1, (params, opt))
     save["final_save_ms"] = (time.perf_counter() - t0) * 1e3
@@ -2224,8 +2341,13 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     drained = ckpt.drain(900)
     save["drain_ms"] = (time.perf_counter() - t0) * 1e3
     save["bytes_written"] = ckpt.stats["bytes"]
+    ckpt_trace = {"trace": rec.to_array(), "chunks": len(flatten_with_paths((params, opt))),
+                  "n_targets": ckpt.n_targets, "save_ms": save["final_save_ms"],
+                  "write_ms": save["drain_ms"], "bytes": state_bytes}
     check(committed and drained and ckpt.latest_step() == TRAIN_STEPS - 1,
           f"train: the checkpoints did not commit ({ckpt.stats})")
+    ckpt.close()
+    ckpt = CheckpointManager(ckpt_dir)    # reopened, as a resumed job opens it
 
     free_memory(torch)
     fresh = T.init_params(cfg, gen.manual_seed(seed + 1), "cuda")
@@ -2254,6 +2376,7 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     prof = train_profile(torch, resume_step, TRAIN_PROFILED)
     ckpt.close()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    dots = dots_steps(torch, cfg, params, opt, data, TRAIN_STEPS, kernels)
     del params, opt
     free_memory(torch)
 
@@ -2270,7 +2393,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
            "mfu": model_flops / (median / 1e3) / BF16_PEAK_FLOPS, "peak_gb": peak_gb,
            "launches": launches, "designs": designs, "checkpoint": save,
            "restore_bitwise": same, "resumed_losses": rerun, "resume_max_rel": resume_rel,
-           "profile": prof, "busy_share": busy / median if busy else None, "card": card}
+           "profile": prof, "busy_share": busy / median if busy else None, "dots": dots,
+           "ckpt_trace": ckpt_trace, "card": card}
     print(f"[train] {cfg.name} full size, bf16 weights + f32 master: {n_params / 1e9:.3f}B "
           f"params, {state_gb:.2f} GB of weights and optimizer state; batch {b} x {s}, "
           f"{mb} microbatches, remat, {TRAIN_STEPS} steps: ce {losses[0]:.4f} -> "
@@ -2295,6 +2419,11 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
           f"{TRAIN_CKPT_STEP + 1}-{TRAIN_STEPS - 1} rerun from step {TRAIN_CKPT_STEP}'s "
           f"restore: max rel loss difference {resume_rel:.2e} (tol {TRAIN_RESUME_TOL:g})",
           flush=True)
+    print(f"[train] remat='dots' at full size, {TRAIN_DOTS_STEPS} steps after the "
+          f"{TRAIN_STEPS}: median step {dots['median_step_ms']:.1f} ms (steps "
+          f"{', '.join(f'{x:.1f}' for x in dots['step_ms'])}), peak {dots['peak_gb']:.1f} GB, "
+          f"flash launches {dots['flash_launches']} (the forward only), beside remat=True's "
+          f"median {median:.1f} ms and peak {peak_gb:.1f} GB in this run, on {card}", flush=True)
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and all(np.isfinite(list(rerun.values()))),
           "train: a loss or grad norm is not finite")
     check(same, "train: the restored checkpoint differs from the trained state")
@@ -2378,16 +2507,19 @@ def time_attention_backward(torch, card: str) -> dict:
 
 def phase_train(torch, seed: int, kernels: dict, card: str) -> dict:
     """Phase 10: the kernel route against the plain route, fp32 for each
-    of ``TRAIN_EXACT`` and bf16 for tinyllama, then tinyllama-1.1b trained
-    at full size."""
+    of ``TRAIN_EXACT`` and bf16 for tinyllama, ``remat="dots"`` against
+    ``remat=True``, then tinyllama-1.1b trained at full size."""
     exact = {arch: train_exact(torch, arch, "float32", seed, kernels) for arch in TRAIN_EXACT}
     exact["tinyllama-1.1b bf16"] = train_exact(torch, "tinyllama-1.1b", "bfloat16", seed,
                                                kernels)
+    dots = train_dots(torch, seed, kernels)
     backward = time_attention_backward(torch, card)
     full = train_full(torch, seed, kernels, card)
     launches = {**{f"{k} route check": r["flash_launches"] for k, r in exact.items()},
-                "tinyllama-1.1b full": full["launches"]["flash_attention"]}
-    return {"exact": exact, "attention_backward": backward, "full": full,
+                "remat dots check": dots["flash_launches"]["dots"],
+                "tinyllama-1.1b full": full["launches"]["flash_attention"],
+                "tinyllama-1.1b full, remat dots": full["dots"]["flash_launches"]}
+    return {"exact": exact, "dots": dots, "attention_backward": backward, "full": full,
             "flash_launches": launches}
 
 
@@ -2398,6 +2530,8 @@ def phase_train(torch, seed: int, kernels: dict, card: str) -> dict:
 MESH_TRAIN_STEPS = 5          # of phase 10's 20, on the same weights and batches
 MESH_LOSS_TOL = 1e-5          # relative, against phase 10's unsharded losses
 MESH_SERVE = ("olmoe-1b-7b", 4)   # arch and requests of the mesh decode (phase 8's traffic)
+MESH_DECODE = ("qwen3-8b", 4, 64, 16)   # dense decode: arch, batch, prompt tokens, new tokens
+MESH_SSM = ("mamba2-780m", 4, 512, 3)   # train step (fp32): arch, batch, seq, steps
 
 
 def start_mesh(torch):
@@ -2488,12 +2622,13 @@ def mesh_train_steps(torch, cfg, mesh, seed: int):
     return params, opt, losses, ms
 
 
-def mesh_probe(torch, seed: int, card: str) -> dict:
+def mesh_probe(torch, seed: int, card: str, kernels: dict) -> dict:
     """``--mesh-probe SRC``: phase 11's timed runs with the port package
     under SRC, at world 1: tinyllama's ``mesh_train_steps`` (median of the
-    steps after the first) and olmoe-1b-7b's paged decode step with
+    steps after the first), olmoe-1b-7b's paged decode step with
     ``mesh=`` under ``MESH_SERVE``'s traffic (phase 5's prompts; median of
-    the steps after the first, each timed to a synchronize), and the calls
+    the steps after the first, each timed to a synchronize), qwen3-8b's
+    dense decode unsharded and through ``mesh=`` (``mesh_decode``), and the calls
     of ``transformer._constrain_batch`` a step makes, with the host µs of
     one on an activation that already has its placements (``constrain_us``)
     before the steps and after them."""
@@ -2546,6 +2681,7 @@ def mesh_probe(torch, seed: int, card: str) -> dict:
         us["after"] = constrain_us(torch, mesh, constrain)
         del eng, params, dparams
         free_memory(torch)
+        dense = mesh_decode(torch, mesh, seed, kernels, card)
     finally:
         T._constrain_batch = constrain
         dist.destroy_process_group()
@@ -2554,7 +2690,10 @@ def mesh_probe(torch, seed: int, card: str) -> dict:
             "train_constrain_calls_per_step": train_calls,
             "decode_steps": len(decode_ms), "decode_median_ms": statistics.median(decode_ms[1:]),
             "decode_constrain_calls_per_step": statistics.median(decode_calls),
-            "constrain_host_us": us}
+            "constrain_host_us": us,
+            "dense_decode": {k: dense[k] for k in (
+                "median_step_ms", "unsharded_median_step_ms", "prefill_ms",
+                "unsharded_prefill_ms", "same_tokens")}}
 
 
 def constrain_us(torch, mesh, constrain) -> dict:
@@ -2632,6 +2771,125 @@ def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict
     return res
 
 
+def greedy_decode(torch, T, params, cfg, prompts, new: int, mesh=None) -> dict:
+    """``prefill`` then ``new`` greedy ``decode_step``s (with ``mesh``,
+    their mesh routes on the cache ``cache_specs`` places): the tokens, the
+    last logits, each decode step's ms (to a synchronize) and the prefill's."""
+    from repro_torch.distributed.sharding import local_part
+    from repro_torch.tree import flatten_with_paths
+
+    b, s = prompts.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(params, prompts, cfg, s + new, mesh=mesh)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks, ms = [], []
+        for _ in range(new):
+            tok = logits[:, -1, :].argmax(dim=-1).to(torch.int32)[:, None]
+            toks.append(tok)
+            t0 = time.perf_counter()
+            logits, cache = T.decode_step(params, tok, cache, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    shards = {k: tuple(local_part(v).shape) for k, v in flatten_with_paths(cache).items()}
+    return {"tokens": torch.cat(toks, dim=1).cpu(), "logits": logits.float(), "step_ms": ms,
+            "prefill_ms": prefill_ms, "shards": shards}
+
+
+def mesh_decode(torch, mesh, seed: int, kernels: dict, card: str) -> dict:
+    """``MESH_DECODE``'s model at its published size, bf16: a prefill of
+    random prompts and greedy ``decode_step``s, unsharded and then through
+    ``mesh=`` with the cache placed by ``cache_specs`` (the prefill's
+    attention, the flash kernel, under ``local_map``): the same tokens, the
+    mesh route's flash launches one per attention layer, both medians."""
+    from repro_torch.distributed import distribute_tree, param_specs
+    from repro_torch.models import transformer as T
+
+    arch, b, s, new = MESH_DECODE
+    cfg, params = load_model(torch, arch, seed, tag="[mesh]")
+    prompts = torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (b, s)).astype(np.int32)).cuda()
+    plain = greedy_decode(torch, T, params, cfg, prompts, new)
+    dparams = distribute_tree(params, param_specs(params, mesh, fsdp=False), mesh)
+    zero_launches(kernels)
+    route = greedy_decode(torch, T, dparams, cfg, prompts, new, mesh=mesh)
+    launches = read_launches(kernels)
+    same = bool(torch.equal(route["tokens"], plain["tokens"]))
+    rel = rel_l2(route["logits"], plain["logits"])
+    res = {"arch": arch, "batch": b, "prompt": s, "new": new, "same_tokens": same,
+           "last_logits_rel_l2": rel, "median_step_ms": statistics.median(route["step_ms"][1:]),
+           "unsharded_median_step_ms": statistics.median(plain["step_ms"][1:]),
+           "prefill_ms": route["prefill_ms"], "unsharded_prefill_ms": plain["prefill_ms"],
+           "cache_shards": route["shards"], "launches": launches}
+    print(f"[mesh] {arch} dense prefill + decode_step through mesh= (cache by cache_specs, "
+          f"local shards {dict(list(route['shards'].items())[:3])} ...): batch {b} x {s}, {new} "
+          f"greedy tokens equal to the unsharded route's: {same} (last logits rel L2 "
+          f"{rel:.2e}); median decode step {res['median_step_ms']:.2f} ms vs unsharded "
+          f"{res['unsharded_median_step_ms']:.2f} ms, prefill {route['prefill_ms']:.1f} vs "
+          f"{plain['prefill_ms']:.1f} ms; flash launches {launches['flash_attention']} on {card}",
+          flush=True)
+    check(same, f"mesh: {arch}'s mesh decode emitted other tokens than the unsharded route")
+    want = attn_layers(cfg)
+    check(launches["flash_attention"] == want, f"mesh: {launches['flash_attention']} flash "
+          f"launches in the mesh prefill, expected {want}")
+    del params, dparams, plain, route
+    free_memory(torch)
+    return res
+
+
+def mesh_ssm_train(torch, mesh, seed: int, card: str) -> dict:
+    """``MESH_SSM``'s model at its published size in fp32 (in bf16 two
+    updates already move the third loss by some 1e-4 between two orders of
+    the same sums): its train step (remat) unsharded and then through
+    ``mesh=`` from the same weights and batches, the Mamba2 layer under
+    ``local_map`` on a rank's rows and heads: the losses within
+    ``MESH_LOSS_TOL`` relative, both medians."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_global_batch
+    from repro_torch.distributed import data_spec, distribute_tree, param_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+
+    arch, b, s, steps = MESH_SSM
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    out = {}
+    for sharded in (False, True):
+        params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda")
+        m = mesh if sharded else None
+        if sharded:
+            params = distribute_tree(params, param_specs(params, mesh), mesh)
+        opt = adamw_init(params)
+        step_fn = make_train_step(cfg, m, remat=True, total_steps=TRAIN_STEPS)
+        losses, ms = [], []
+        for i in range(steps):
+            raw = {k: v.cpu().numpy() for k, v in train_batch(cfg, seed, b, s, i).items()}
+            batch = (make_global_batch(raw, mesh, data_spec(mesh, b), "cuda") if sharded
+                     else {k: torch.from_numpy(v).cuda() for k, v in raw.items()})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, met = step_fn(params, opt, batch)
+            losses.append(float(met["ce"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[sharded] = (losses, statistics.median(ms[1:]))
+        del params, opt
+        free_memory(torch)
+    (plain, plain_ms), (route, route_ms) = out[False], out[True]
+    rel = max(abs(a - w) / abs(w) for a, w in zip(route, plain))
+    print(f"[mesh] {arch} fp32 train step through mesh= (the Mamba2 layer under local_map, "
+          f"rows and heads), batch {b} x {s}, remat, {steps} steps: losses "
+          f"{', '.join(f'{x:.6f}' for x in route)} vs unsharded "
+          f"{', '.join(f'{x:.6f}' for x in plain)}: max rel {rel:.2e} (tol {MESH_LOSS_TOL:g}); "
+          f"median step {route_ms:.1f} ms vs unsharded {plain_ms:.1f} ms on {card}", flush=True)
+    check(all(np.isfinite(route)), f"mesh: a {arch} loss is not finite")
+    check(rel <= MESH_LOSS_TOL, f"mesh: {arch}'s mesh train losses differ from the unsharded")
+    return {"arch": arch, "batch": b, "seq": s, "steps": steps, "losses": route,
+            "unsharded_losses": plain, "max_rel": rel, "median_step_ms": route_ms,
+            "unsharded_median_step_ms": plain_ms}
+
+
 def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict,
                unsharded_serve: dict) -> dict:
     """Phase 11: the mesh path at world 1 (one card). (a) an NCCL group of
@@ -2639,8 +2897,10 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
     decode step with ``mesh=`` (the MoE through ``local_map``) under the
     serve traffic, its first step held to the unsharded step's logits
     (``BF16_TOL`` relative L2, replayed routing), the median step beside
-    phase 8's; (d) in ``mesh_train``, the int8 quantization. The group is
-    ended before it returns."""
+    phase 8's; (d) in ``mesh_train``, the int8 quantization; (e)
+    ``mesh_decode``, the dense decode on the cache ``cache_specs`` places;
+    (f) ``mesh_ssm_train``, the Mamba2 train step by rows and heads. The
+    group is ended before it returns."""
     import torch.distributed as dist
 
     mesh = start_mesh(torch)
@@ -2648,6 +2908,8 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
         print(f"[mesh] process group: {dist.get_backend()} world {dist.get_world_size()}, "
               f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {card}", flush=True)
         train = mesh_train(torch, mesh, seed, kernels, card, unsharded_train)
+        decode = mesh_decode(torch, mesh, seed, kernels, card)
+        ssm = mesh_ssm_train(torch, mesh, seed, card)
         arch, n_req = MESH_SERVE
         cfg, params = load_model(torch, arch, seed, tag="[mesh]")
         serve = phase_serve(torch, cfg, params, seed, kernels, card, n_req,
@@ -2659,9 +2921,10 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
     print(f"[mesh] {arch} decode, mesh route: median step {serve['median_step_ms']:.2f} ms vs "
           f"phase 8's unsharded {unsharded_serve['median_step_ms']:.2f} ms; paged launches "
           f"{serve['launches']['paged_attention']} through local_map on {card}", flush=True)
-    # flash through local_map: the train steps' (the engine's prefill is unsharded)
-    return {"train": train, "serve": serve, "launches": {
-        "flash_attention": train["flash_launches"],
+    # flash through local_map: the train steps' and the dense decode's prefill (the
+    # engine's prefill is unsharded)
+    return {"train": train, "decode": decode, "ssm_train": ssm, "serve": serve, "launches": {
+        "flash_attention": train["flash_launches"] + decode["launches"]["flash_attention"],
         "paged_attention": serve["launches"]["paged_attention"]}}
 
 
@@ -2673,7 +2936,12 @@ BENCH_ARCH = "qwen3-8b"      # the serving bench at its published size
 BENCH_REQUESTS = 8           # serving_bench.run's traffic: 8 prompts of 16 tokens, 24 new
 SERVE_POOL = (16, 4)         # phase 5's engine: sets, set size
 SERVE_PAGE = 16              # phase 5's engine: tokens a page
-DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"), ("olmoe-1b-7b", "decode_32k", "multi"))
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", "single"), ("olmoe-1b-7b", "decode_32k", "multi"),
+                ("mamba2-780m", "train_4k", "single"))
+# argument bytes a device of a decode cell when every rank held every row of the
+# cache, its KV heads over model (the layout before ``cache_specs`` placed it),
+# counted by ``launch.dryrun --device cpu`` at the same shapes
+EVERY_ROW_ARGUMENT_BYTES = {("olmoe-1b-7b", "decode_32k", "multi"): 35_501_466_128}
 DRYRUN_TIMEOUT_S = 600
 
 
@@ -2720,9 +2988,17 @@ def finish_dryruns(procs: list, out_dir: Path, card: str) -> dict:
                   f"collectives {rec['collectives']['total_bytes']:.4e} B "
                   f"{rec['collectives']['by_axis']}; derived H100 terms compute "
                   f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} ms, "
-                  f"collective {r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; args "
+                  f"collective {r['collective_s'] * 1e3:.3f} ms -> {r['bottleneck']}; useful-FLOP "
+                  f"ratio {rec['useful_flop_ratio']:.4f}; args "
                   f"{rec['memory']['argument_bytes'] / 2 ** 30:.2f} GiB a device (not measured "
                   f"on {card})", flush=True)
+            old = EVERY_ROW_ARGUMENT_BYTES.get((arch, shape, mesh))
+            if old:
+                print(f"[tooling] dry run {arch} x {shape} x {mesh}: memory {rec['memory']} "
+                      f"(argument bytes {rec['memory']['argument_bytes']:,} with the cache by "
+                      f"cache_specs, against {old:,} with every row on every rank)", flush=True)
+                check(rec["memory"]["argument_bytes"] < old, f"tooling: the {arch} {shape} "
+                      "decode cache is not cut below every row on every rank")
             res[f"{arch} {shape} {mesh}"] = rec
     finally:
         for _, proc, _ in procs:
@@ -2911,6 +3187,56 @@ def phase_tooling(torch, seed: int, kernels: dict, card: str, train_full: dict,
             "launches": bench["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the trace bridge into the SSD-array simulator
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = ROOT / "build" / "traces"
+
+
+def phase_trace(torch, seed: int, kernels: dict, card: str, ckpt: dict) -> dict:
+    """Phase 13: the port's page IO as traces for the SSD-array simulator
+    (``serving/trace_shim.py``, ``serving/fleet.py``). (a) ``run_fleet`` at
+    ``FleetConfig()`` and ``seed``: the rows, ``trace_digest`` and seconds;
+    (b) ``ckpt``, the trace that ``attach_ckpt`` recorded of phase 10's
+    final save of the trained tinyllama-1.1b and its optimizer state (the
+    ``CheckpointManager``'s ``ckpt_trace``): one write row a chunk, the
+    digest and the save ms. Both traces go to ``build/traces/*.npz``.
+    Nothing here runs on the card and no kernel launches; the replay's GC
+    numbers are simulator output, not card numbers, and are not run here."""
+    from repro_torch.serving.fleet import FleetConfig, run_fleet
+    from repro_torch.serving.trace_shim import save_trace, trace_digest
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    zero_launches(kernels)
+    t0 = time.perf_counter()
+    fleet = run_fleet(FleetConfig(), seed=seed)
+    fleet_s = time.perf_counter() - t0
+    save_trace(TRACE_DIR / f"fleet_seed{seed}.npz", fleet.trace, meta=fleet.meta)
+    out = {"fleet": {"rows": len(fleet.trace), "digest": trace_digest(fleet.trace),
+                     "seconds": fleet_s, "offloads": fleet.offloads, "fetches": fleet.fetches,
+                     "stale_discards": fleet.stale_discards,
+                     "dirty_evictions": fleet.dirty_evictions}}
+    print(f"[trace] run_fleet(FleetConfig(), seed={seed}): {out['fleet']['rows']} rows in "
+          f"{fleet_s:.2f} s (offloads {fleet.offloads}, fetches {fleet.fetches}, stale discards "
+          f"{fleet.stale_discards}, blocking spills {fleet.dirty_evictions}); trace_digest "
+          f"{out['fleet']['digest']}", flush=True)
+    check(len(fleet.trace) > 0, "trace: the fleet emitted no row")
+
+    trace = ckpt.pop("trace")
+    save_trace(TRACE_DIR / "ckpt_tinyllama-1.1b.npz", trace, meta={"n_targets": ckpt["n_targets"]})
+    out["ckpt"] = {**ckpt, "rows": len(trace), "digest": trace_digest(trace)}
+    launches = read_launches(kernels)
+    print(f"[trace] attach_ckpt on phase 10's CheckpointManager, its final save of "
+          f"tinyllama-1.1b's trained state ({ckpt['bytes'] / 1e9:.2f} GB, {ckpt['chunks']} "
+          f"chunks): {len(trace)} rows, save_async {ckpt['save_ms']:.0f} ms, the writes pumped "
+          f"and committed in {ckpt['write_ms']:.0f} ms; trace_digest {out['ckpt']['digest']}; "
+          f"traces in {TRACE_DIR.relative_to(ROOT)}/; launches {launches} on {card}", flush=True)
+    check(len(trace) == ckpt["chunks"],
+          f"trace: {len(trace)} rows for {ckpt['chunks']} checkpoint chunks")
+    return {**out, "launches": launches}
+
+
 def ptxas_report(log: str) -> dict:
     """Registers and spill bytes of each function in an nvcc ``-Xptxas -v`` log."""
     funcs, cur = {}, None
@@ -3008,7 +3334,8 @@ def main() -> int:
                "flush_scores": flush_mod.flush_scores}
     if probe_src:
         probe = (decode_probe if args.decode_probe else flush_probe if args.flush_probe
-                 else mesh_probe if args.mesh_probe else backward_probe)
+                 else backward_probe if args.backward_probe
+                 else lambda torch, seed, card: mesh_probe(torch, seed, card, kernels))
         try:
             print(json.dumps(probe(torch, args.seed, card)), flush=True)
         except SmokeFailure as e:
@@ -3018,32 +3345,37 @@ def main() -> int:
 
     try:
         # 2. build
-        build = build_all(torch, {"paged_attention": paged_mod, "flash_attention": flash_mod,
-                                  "flush_score": flush_mod})
+        build = timed("build", build_all, torch, {
+            "paged_attention": paged_mod, "flash_attention": flash_mod, "flush_score": flush_mod})
         # 3. kernels
-        paged = phase_kernels(torch, args.seed, card)
-        flash = phase_flash(torch, args.seed, card)
-        flush = phase_flush(torch, args.seed, card)
+        paged = timed("kernels: paged", phase_kernels, torch, args.seed, card)
+        flash = timed("kernels: flash", phase_flash, torch, args.seed, card)
+        flush = timed("kernels: flush", phase_flush, torch, args.seed, card)
         # 4-8. the paths
-        exact = phase_exact(torch, args.seed, kernels)
-        exact_families = {arch: phase_exact(torch, args.seed, kernels, arch)
-                          for arch in EXACT_FAMILIES}
+        exact = timed("exact", phase_exact, torch, args.seed, kernels)
+        exact_families = {arch: timed(f"exact {arch}", phase_exact, torch, args.seed, kernels,
+                                      arch) for arch in EXACT_FAMILIES}
         cfg, params = load_model(torch, "qwen3-8b", args.seed)
-        serve = phase_serve(torch, cfg, params, args.seed, kernels, card)
-        prefill = phase_prefill(torch, cfg, params, args.seed, kernels, card)
+        serve = timed("serve", phase_serve, torch, cfg, params, args.seed, kernels, card)
+        prefill = timed("prefill", phase_prefill, torch, cfg, params, args.seed, kernels, card)
         del params
         free_memory(torch)
-        sa = phase_sa_cache(torch, args.seed, kernels, card)
-        families = phase_families(torch, args.seed, kernels, card)
+        sa = timed("sa-cache", phase_sa_cache, torch, args.seed, kernels, card)
+        families = timed("families", phase_families, torch, args.seed, kernels, card)
         # 9. encoder-decoder and vision
-        encdec = phase_encdec_vision(torch, args.seed, kernels, card)
+        encdec = timed("encdec, vision", phase_encdec_vision, torch, args.seed, kernels, card)
         # 10. training
-        train = phase_train(torch, args.seed, kernels, card)
+        train = timed("train", phase_train, torch, args.seed, kernels, card)
         # 11. the mesh path
-        mesh = phase_mesh(torch, args.seed, kernels, card, train["full"],
-                          families[MESH_SERVE[0]])
+        mesh = timed("mesh", phase_mesh, torch, args.seed, kernels, card, train["full"],
+                     families[MESH_SERVE[0]])
         # 12. the tooling
-        tooling = phase_tooling(torch, args.seed, kernels, card, train["full"], serve)
+        tooling = timed("tooling", phase_tooling, torch, args.seed, kernels, card,
+                        train["full"], serve)
+        # 13. the trace bridge
+        trace = timed("trace", phase_trace, torch, args.seed, kernels, card,
+                      train["full"].pop("ckpt_trace"))
+        free_memory(torch)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3116,8 +3448,8 @@ def main() -> int:
         {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
          "prefill": prefill, "families": families, "encdec_vision": encdec,
          "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families,
-         "train": train, "mesh": mesh, "tooling": tooling},
-        indent=1, default=str))
+         "train": train, "mesh": mesh, "tooling": tooling, "trace": trace,
+         "phase_seconds": PHASE_SECONDS}, indent=1, default=str))
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,17 +39,13 @@ def fmt_table(rows: list[dict]) -> str:
     for r in rows:
         rf = r["roofline"]
         cb = r["collectives"]["bytes"]
-        shape = r["shape"] + ("*" if "cache_layout" in r else "")
         out.append(
-            f"{r['arch']:22s} {shape:12s} "
+            f"{r['arch']:22s} {r['shape']:12s} "
             f"{rf['compute_s'] * 1e3:10.2f} {rf['memory_s'] * 1e3:10.2f} "
             f"{rf['collective_s'] * 1e3:9.2f} {rf['bottleneck']:>10s} "
             f"{(r['useful_flop_ratio'] or 0):7.3f} "
             f"{cb.get('all-gather', 0) / 1e9:7.2f} "
             f"{cb.get('all-reduce', 0) / 1e9:7.2f} {r['trace_s']:7.1f}")
-    if any("cache_layout" in r for r in rows):
-        out.append("* decode: the port's cache layout (every row on every rank), not JAX's "
-                   "cache_specs: its memory is not comparable with JAX's")
     return "\n".join(out)
 
 

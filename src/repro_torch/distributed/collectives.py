@@ -102,10 +102,10 @@ def cross_pod_grad_reduce(grads: Any, state: CompressionState, mesh, *,
 # pmean's pmean, a tiled all-to-all's the reverse all-to-all.
 # ---------------------------------------------------------------------------
 
-def _sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+def _reduce_over(x: torch.Tensor, groups, op=dist.ReduceOp.SUM) -> torch.Tensor:
     x = x.contiguous().clone()
     for g in groups:
-        dist.all_reduce(x, group=g)
+        dist.all_reduce(x, op=op, group=g)
     return x
 
 
@@ -113,11 +113,11 @@ class _PSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, groups, scale):
         ctx.groups, ctx.scale = groups, scale
-        return _sum_over(x, groups) * scale
+        return _reduce_over(x, groups) * scale
 
     @staticmethod
     def backward(ctx, g):
-        return _sum_over(g, ctx.groups) * ctx.scale, None, None
+        return _reduce_over(g, ctx.groups) * ctx.scale, None, None
 
 
 def group_size(groups) -> int:
@@ -134,6 +134,12 @@ def psum(x: torch.Tensor, groups) -> torch.Tensor:
 
 def pmean(x: torch.Tensor, groups) -> torch.Tensor:
     return _PSum.apply(x, tuple(groups), 1.0 / group_size(groups))
+
+
+def pmax(x: torch.Tensor, groups) -> torch.Tensor:
+    """Largest ``x`` over every rank of ``groups``; not differentiated (the
+    decode's softmax combine only)."""
+    return _reduce_over(x, groups, dist.ReduceOp.MAX)
 
 
 def _experts_to_owners(x: torch.Tensor, group, n: int) -> torch.Tensor:

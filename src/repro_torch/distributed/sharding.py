@@ -242,6 +242,13 @@ def placements(spec: PartitionSpec, mesh) -> list:
     return out
 
 
+def cut_axes(t: DTensor, dim: int):
+    """The spec entry of ``t``'s dim ``dim``: the names of the mesh axes
+    that cut it, in mesh order (None for none)."""
+    names = list(mesh_shape(t.device_mesh))
+    return tuple(a for a, p in zip(names, t.placements) if p == Shard(dim)) or None
+
+
 def distribute_tree(tree: Any, specs: Any, mesh) -> Any:
     """Each leaf of ``tree`` as a DTensor on ``mesh`` with its spec's
     placements. Every rank holds the same full leaf (drawn from one seed or
@@ -297,8 +304,8 @@ def replicate(x, mesh):
 
 
 def replicated(fn, mesh, *args, **kwargs):
-    """``fn`` over the whole of its inputs on every rank, for code with no
-    sharding rule of its own (the Mamba2 scan): DTensor leaves of ``args``
+    """``fn`` over the whole of its inputs on every rank, for a batch too
+    small to cut (the MoE's single-row decode): DTensor leaves of ``args``
     are gathered (``full_tensor``, whose gradient flows back to the shards),
     and the tensors ``fn`` returns come back as replicated DTensors. Without
     a mesh, ``fn(*args, **kwargs)``."""

@@ -9,12 +9,9 @@ model``), and this process plays rank 0. The port's own step runs on it,
 as a user calls it (``launch/steps.make_train_step``, ``make_prefill_step``,
 ``make_decode_step``): parameters placed by ``param_specs`` (``fsdp=False``
 for decode, as JAX), the batch by ``data_spec``, the optimizer state by the
-parameters' placements. The decode cache is the one ``decode_step(mesh=)``
-reads, a rank's: its KV heads over ``model``, every row
-(``init_decode_cache(mesh=)``), where JAX's ``cache_specs`` also cut the
-batch over the data axes and the sequence over ``model``; a decode cell's
-``memory`` and ``bytes_per_device`` measure that layout and are not
-comparable with JAX's, and its JSON's ``cache_layout`` says so. A cell that runs
+parameters' placements, the decode cache by ``cache_specs``, as JAX's
+(``init_decode_cache(mesh=)``: the rows over the data axes and the KV
+sequence over ``model``, the Mamba2 state by rows and heads). A cell that runs
 to its end proves that the placements compose at production scale (no
 placement DTensor cannot propagate, every collective issued); ``launch/
 cost.py`` counts what the step runs on rank 0's shards.
@@ -237,11 +234,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *, device: str = "cuda"
         "model_flops_per_device": model_per_dev,
         "useful_flop_ratio": model_per_dev / flops if flops else None,
     }
-    if shape.mode == "decode":
-        res["cache_layout"] = (
-            "every batch row on every rank, KV heads over model (decode_step(mesh=)); JAX's "
-            "cache_specs also cut the batch over the data axes and the sequence over model: "
-            "memory and bytes_per_device are not comparable with JAX's")
     if breakdown:
         res["breakdown"] = {k: tot[k] for k in ("by_op", "by_path", "collectives_by_path")}
     if verbose:

@@ -23,7 +23,7 @@ LB_COEF = 0.01       # MoE load-balance aux weight (switch-transformer default)
 Z_COEF = 1e-3        # router z-loss weight
 
 
-def make_loss_fn(cfg: ModelConfig, mesh=None, remat: bool = True):
+def make_loss_fn(cfg: ModelConfig, mesh=None, remat: bool | str = True):
     def loss_fn(params, batch):
         hidden, aux = T.forward(params, batch["tokens"], cfg, positions=batch.get("positions"),
                                 enc_frames=batch.get("enc_frames"),
@@ -34,7 +34,8 @@ def make_loss_fn(cfg: ModelConfig, mesh=None, remat: bool = True):
     return loss_fn
 
 
-def make_grad_fn(cfg: ModelConfig, mesh=None, *, remat: bool = True, microbatches: int = 1):
+def make_grad_fn(cfg: ModelConfig, mesh=None, *, remat: bool | str = True,
+                 microbatches: int = 1):
     """``grad_fn(params, batch) -> (grads, metrics)``: the train step's
     gradient, a tree like ``params``, and its metrics (``ce``, ``lb``, ``z``).
 
@@ -83,8 +84,8 @@ def make_grad_fn(cfg: ModelConfig, mesh=None, *, remat: bool = True, microbatche
     return grad_fn
 
 
-def make_train_step(cfg: ModelConfig, mesh=None, *, remat: bool = True, peak_lr: float = 3e-4,
-                    warmup: int = 100, total_steps: int = 10_000,
+def make_train_step(cfg: ModelConfig, mesh=None, *, remat: bool | str = True,
+                    peak_lr: float = 3e-4, warmup: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``make_grad_fn``'s gradient, then AdamW at the cosine

@@ -19,13 +19,13 @@ from functools import partial
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import (P, contiguous_grad, dp_axes, dp_size,
-                                              grad_in_placements, placements,
-                                              replicate)
+from repro_torch.distributed.collectives import pmax, psum
+from repro_torch.distributed.sharding import (P, contiguous_grad, cut_axes, dp_axes, dp_size,
+                                              grad_in_placements, placements, replicate)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_shape
 
@@ -208,25 +208,57 @@ def _attend(q, k, v, *, causal: bool, window: int, softcap: float, q_offset: int
                             q_offset=q_offset)
 
 
-def head_placements(mesh, batch: int | None, kv_heads: int) -> list:
-    """Placements of a (B, S, heads, hd) tensor on ``mesh``: the batch over
-    the data-parallel axes where they divide it (``batch`` None: replicated),
-    the heads over ``model`` where it divides the KV heads (GQA's groups stay
-    whole on a card), else replicated, as ``_fix_divisibility`` leaves
-    them."""
-    dp = batch is not None and batch % dp_size(mesh) == 0
-    tp = kv_heads % mesh_shape(mesh)["model"] == 0
-    return placements(P(dp_axes(mesh) if dp else None, None, "model" if tp else None, None),
-                      mesh)
+def head_split(mesh, n_heads: int, kv_heads: int) -> str | None:
+    """How attention's heads go over ``model``: ``"kv"`` where it divides
+    the KV heads (each rank whole GQA groups, query and KV heads cut
+    together); ``"q"`` where it divides the query heads and is a multiple
+    of the KV heads (tinyllama's 32 and 4 on 16 ranks: a rank's 2 query
+    heads share one KV head, which it alone uses); else None, every head on
+    every rank."""
+    tp = mesh_shape(mesh)["model"]
+    if kv_heads % tp == 0:
+        return "kv"
+    if n_heads % tp == 0 and tp % kv_heads == 0:
+        return "q"
+    return None
 
 
-def local_kv_heads(kv_heads: int, mesh) -> int:
-    """KV heads a rank's cache or page pool holds: its share over ``model``
-    where that divides them (``head_placements``), else all of them."""
+def head_placements(mesh, batch: int | None, n_heads: int, kv_heads: int) -> tuple:
+    """(query, KV, KV gradient) placements of (B, S, heads, hd) tensors on
+    ``mesh`` for attention under ``local_map``: the batch over the
+    data-parallel axes where they divide it (``batch`` None: replicated);
+    the heads as ``head_split`` cuts them. Under ``"q"`` the K/V come
+    replicated over ``model`` and each rank reads its KV head
+    (``kv_for_rank``), so their gradient is a sum over ``model``
+    (``Partial``)."""
+    dp = dp_axes(mesh) if batch is not None and batch % dp_size(mesh) == 0 else None
+    split = head_split(mesh, n_heads, kv_heads)
+    q = placements(P(dp, None, "model" if split else None, None), mesh)
+    kv = placements(P(dp, None, "model" if split == "kv" else None, None), mesh)
+    if split != "q":
+        return q, kv, kv
+    names = list(mesh_shape(mesh))
+    grad = [Partial() if i == names.index("model") else p for i, p in enumerate(kv)]
+    return q, kv, grad
+
+
+def kv_for_rank(x: torch.Tensor, mesh, n_heads: int, kv_heads: int) -> torch.Tensor:
+    """This rank's KV heads of a local (..., KV, hd) tensor that holds every
+    KV head: under ``head_split`` ``"q"`` the one its query heads read
+    (query head j reads KV head j // (H / KV)), else all of them."""
+    if mesh is None or head_split(mesh, n_heads, kv_heads) != "q":
+        return x
+    i = mesh.get_local_rank("model") * kv_heads // mesh_shape(mesh)["model"]
+    return x[..., i:i + 1, :]
+
+
+def local_kv_heads(n_heads: int, kv_heads: int, mesh) -> int:
+    """KV heads a rank's page pool holds: its share over ``model`` under
+    ``head_split`` ``"kv"``, its one KV head under ``"q"``, else all."""
     if mesh is None:
         return kv_heads
-    tp = mesh_shape(mesh)["model"]
-    return kv_heads // tp if kv_heads % tp == 0 else kv_heads
+    split = head_split(mesh, n_heads, kv_heads)
+    return kv_heads // mesh_shape(mesh)["model"] if split == "kv" else 1 if split else kv_heads
 
 
 def split_heads(x, heads: int, hd: int):
@@ -244,14 +276,6 @@ def split_heads(x, heads: int, hd: int):
     return x.reshape(*x.shape[:-1], heads, hd)
 
 
-def local_heads(x, mesh, kv_heads: int):
-    """This rank's heads of a (B, S, heads, hd) DTensor, every batch row, as
-    a plain tensor (a cache write's operand); a plain tensor as it is."""
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(mesh, head_placements(mesh, None, kv_heads)).to_local()
-
-
 def multihead_attention(x, params, cfg: ModelConfig, *, positions,
                         window: int = 0, causal: bool = True,
                         kv_override=None, q_offset: int = 0,
@@ -267,7 +291,8 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
     while ``max(Sq, Skv)`` is at most ``dense_threshold``, chunked past it.
 
     With a ``mesh`` and DTensor activations the core runs under
-    ``local_map`` on each card's batch rows and heads (``head_placements``):
+    ``local_map`` on each card's batch rows and heads (``head_placements``;
+    under ``head_split`` ``"q"`` its query heads and their one KV head):
     the kernel sees plain local tensors, and its gradient flows back through
     ``local_map``."""
     b, s, _ = x.shape
@@ -290,11 +315,14 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
                                                          if dense_threshold is None
                                                          else dense_threshold))
     if mesh is not None and isinstance(q, DTensor):
-        pl = head_placements(mesh, b, kvh)
+        q_pl, kv_pl, kv_grad = head_placements(mesh, b, h, k.shape[2])
         k, v = replicate(k, mesh), replicate(v, mesh)
-        core = attend
-        attend = local_map(lambda *qkv: core(*map(contiguous_grad, qkv)), out_placements=pl,
-                           in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
+        core, pick = attend, partial(kv_for_rank, mesh=mesh, n_heads=h, kv_heads=k.shape[2])
+        attend = local_map(
+            lambda q, k, v: core(*map(contiguous_grad, (q, pick(k), pick(v)))),
+            out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl),
+            in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+            redistribute_inputs=True)
     out = attend(q, k, v)
     return grad_in_placements(out.reshape(b, s, h * hd)) @ params["wo"]
 
@@ -317,6 +345,21 @@ def project_kv(x, params, cfg: ModelConfig, positions):
 # serving/paged_model.py)
 # ---------------------------------------------------------------------------
 
+def _decode_logits(q, k_ctx, *, lengths, softcap: float, kpos):
+    """(B, KV, rep, S) f32 logits of a decode query over ``k_ctx``, keys
+    at or past ``lengths`` (by ``kpos`` where given) at ``NEG_INF``."""
+    b, _, h, hd = q.shape
+    skv, kvh = k_ctx.shape[1], k_ctx.shape[2]
+    qf = (q.float() * (hd ** -0.5)).reshape(b, kvh, h // kvh, hd)
+    logits = torch.einsum("bgrd,bkgd->bgrk", qf.to(k_ctx.dtype).float(), k_ctx.float())
+    logits = _softcap(logits, softcap)
+    if kpos is None:
+        valid = torch.arange(skv, device=q.device)[None, :] < lengths[:, None]
+    else:
+        valid = kpos < lengths[:, None]
+    return logits.masked_fill(~valid[:, None, None], NEG_INF)
+
+
 def decode_attention(q, k_ctx, v_ctx, *, lengths, softcap: float = 0.0,
                      kpos=None) -> torch.Tensor:
     """q: (B,1,H,hd); k_ctx/v_ctx: (B,S,KV,hd); lengths: (B,) valid KV count.
@@ -326,34 +369,68 @@ def decode_attention(q, k_ctx, v_ctx, *, lengths, softcap: float = 0.0,
     rounded to the cache's dtype and the weights to v's dtype, with f32
     accumulation."""
     b, _, h, hd = q.shape
-    skv, kvh = k_ctx.shape[1], k_ctx.shape[2]
-    rep = h // kvh
-    qf = (q.float() * (hd ** -0.5)).reshape(b, kvh, rep, hd)
-    logits = torch.einsum("bgrd,bkgd->bgrk", qf.to(k_ctx.dtype).float(), k_ctx.float())
-    logits = _softcap(logits, softcap)
-    if kpos is None:
-        valid = torch.arange(skv, device=q.device)[None, :] < lengths[:, None]
-    else:
-        valid = kpos < lengths[:, None]
-    logits = logits.masked_fill(~valid[:, None, None], NEG_INF)
-    w = torch.softmax(logits, dim=-1)
+    w = torch.softmax(_decode_logits(q, k_ctx, lengths=lengths, softcap=softcap, kpos=kpos),
+                      dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", w.to(v_ctx.dtype).float(), v_ctx.float())
     return out.reshape(b, 1, h * hd).to(q.dtype)
 
 
-def decode_cross_attention(x, params, cfg: ModelConfig, kv) -> torch.Tensor:
+def decode_attention_partial(q, k_ctx, v_ctx, *, lengths, softcap: float = 0.0, kpos=None):
+    """``decode_attention`` over one slice of the keys, before the softmax's
+    normalization: (o (B, H, hd), m (B, H), l (B, H)) in f32, with m the
+    slice's largest logit, l the sum of exp(logit - m) and o those weights'
+    sum of values. A slice with no valid key has m = NEG_INF, and the
+    combine gives it weight 0. ``combine_partials`` over the ranks that
+    hold the other slices gives the softmax over every key: the combine
+    GSPMD inserts for JAX's decode over a sequence-cut cache."""
+    b, _, h, hd = q.shape
+    logits = _decode_logits(q, k_ctx, lengths=lengths, softcap=softcap, kpos=kpos)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None])
+    o = torch.einsum("bgrk,bkgd->bgrd", p.to(v_ctx.dtype).float(), v_ctx.float())
+    return o.reshape(b, h, hd), m.reshape(b, h), p.sum(dim=-1).reshape(b, h)
+
+
+def combine_partials(o, m, l, groups) -> torch.Tensor:
+    """The attention output (B, H, hd) f32 over the key slices held by the
+    ranks of ``groups`` (one process group per mesh axis the keys are cut
+    over), the same on each of them: the largest logit by ``pmax`` of
+    ``m``, then each slice's ``o`` and ``l`` rescaled to it and summed."""
+    scale = torch.exp(m - pmax(m, groups))
+    ol = psum(torch.cat([o * scale[..., None], (l * scale)[..., None]], dim=-1), groups)
+    return ol[..., :-1] / ol[..., -1:]
+
+
+def decode_cross_attention(x, params, cfg: ModelConfig, kv, mesh=None) -> torch.Tensor:
     """Decode-time cross-attention (whisper): x (B, 1, D) attends over the
     whole precomputed encoder K/V ({"k", "v"}: (B, enc_seq, KV, hd)), every
     key valid. Through ``decode_attention``, as in JAX, which has no kernel
     on this path (a flash launch at Sq 1 would leave all but one row of its
-    query tile idle)."""
-    b = x.shape[0]
+    query tile idle). With a ``mesh`` and DTensor K/V (the cache's, placed
+    by ``cache_specs``: rows over the data axes, the encoder sequence over
+    ``model`` where it divides) it runs under ``local_map``: each rank
+    attends over its rows' slice of the keys with every head, and the
+    slices meet in ``combine_partials``."""
     h, hd = cfg.n_heads, cfg.head_dim
     q = split_heads(x @ params["wq"], h, hd)
-    skv = kv["k"].shape[1]
-    out = decode_attention(q, kv["k"], kv["v"],
-                           lengths=torch.full((b,), skv, dtype=torch.int32, device=x.device))
-    return out @ params["wo"]
+
+    def attend(q, k, v, groups=()):
+        lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
+        if not groups:
+            return decode_attention(q, k, v, lengths=lengths)
+        o, m, l = decode_attention_partial(q, k, v, lengths=lengths)
+        return combine_partials(o, m, l, groups).reshape(q.shape[0], 1, -1).to(q.dtype)
+
+    if mesh is not None and isinstance(kv["k"], DTensor):
+        rows = cut_axes(kv["k"], 0)
+        pl = placements(P(rows, None, None), mesh)
+        groups = [mesh.get_group(a) for a in cut_axes(kv["k"], 1) or () if mesh_shape(mesh)[a] > 1]
+        attend = local_map(partial(attend, groups=groups),
+                           out_placements=pl,
+                           in_placements=(placements(P(rows, None, None, None), mesh),
+                                          kv["k"].placements, kv["v"].placements),
+                           device_mesh=mesh, redistribute_inputs=True)
+    return attend(q, kv["k"], kv["v"]) @ params["wo"]
 
 
 # ---------------------------------------------------------------------------

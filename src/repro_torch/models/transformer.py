@@ -37,17 +37,18 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.distributed.sharding import (P, constrain, dp_axes, dp_size, local_part,
-                                              mesh_context, placements, replicate, replicated,
-                                              whole)
+from repro_torch.distributed.sharding import (P, cache_specs, constrain, cut_axes, dp_axes,
+                                              dp_size, grad_in_placements, local_part,
+                                              mesh_context, placements, replicate, whole)
 from repro_torch.launch.mesh import mesh_shape
 from repro_torch.tree import tree_map
 from . import layers as L
 from .moe import init_moe, moe_ffn
-from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step
+from .ssm import init_mamba, init_mamba_state, mamba_chunked, mamba_decode_step, mesh_layout
 
 KPOS_INVALID = (2 ** 31 - 1) // 2   # empty ring slot: always masked
 
@@ -266,7 +267,12 @@ def embed_tokens(params, tokens, cfg: ModelConfig, vis_embeds=None):
 
 
 def head_weight(params, cfg: ModelConfig):
-    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """The output projection (D, V): ``lm_head``, or the embedding table's
+    transpose when they are tied. A tied table's gradient from the head
+    comes back in the table's own placements (``grad_in_placements``), as
+    its lookup's does, so the two add without a redistribute (DTensor in
+    torch 2.11 picks Shard -> Partial for that sum and cannot do it)."""
+    return grad_in_placements(params["embed"]).T if cfg.tie_embeddings else params["lm_head"]
 
 
 def logits_fn(params, x, cfg: ModelConfig):
@@ -307,7 +313,7 @@ def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross
         h = L.multihead_attention(h, p["attn"], cfg, positions=positions,
                                   window=spec.window, causal=True, mesh=mesh)
     else:
-        h = replicated(mamba_chunked, mesh, h, p["attn"], cfg)
+        h = mamba_chunked(h, p["attn"], cfg, mesh=mesh)
     h = _constrain_batch(h, mesh)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
@@ -361,6 +367,23 @@ def block_slices(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
+         torch.ops.repro_torch.flash_attention.default}
+
+
+def dots_saveable():
+    """The selective checkpoint of ``forward(remat="dots")``, JAX's
+    ``jax.checkpoint_policies.dots_saveable``: the outputs of ``mm``,
+    ``addmm`` and ``bmm`` (every projection, and the plain attention's two
+    products, ``dot_general``s in JAX) and of the flash operator are saved,
+    everything else is recomputed in the backward pass."""
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None,
             vis_embeds=None, remat: bool | str = True, mesh=None):
     """Trunk forward. Returns (final_hidden (B,S,D), aux losses dict).
@@ -371,19 +394,15 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None
     ``remat``: each block (one pass of the config's pattern) runs under
     ``torch.utils.checkpoint`` (non-reentrant) while autograd records, as
     JAX's ``jax.checkpoint`` of its scan body: its activations are
-    recomputed in the backward pass, attention kernels included. JAX's
-    ``remat="dots"`` (the ``dots_saveable`` policy) has no exact PyTorch
-    counterpart and raises ``NotImplementedError``.
+    recomputed in the backward pass, attention kernels included.
+    ``remat="dots"`` is JAX's ``dots_saveable`` policy as a selective
+    checkpoint (``dots_saveable``): the outputs of the matrix products and
+    of the flash operator are kept, the elementwise chains recomputed.
 
     ``mesh``: params (and inputs) are DTensors on it (``distributed``); the
     residual stream is pinned to the batch over the data-parallel axes at
     each block boundary (``_constrain_batch``), DTensor propagates the rest,
     and attention and the MoE run under ``local_map``."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (JAX's jax.checkpoint_policies.dots_saveable: keep matmul "
-            "outputs, recompute the rest) has no counterpart in the port; use remat=True "
-            "or False")
     with mesh_context(mesh):
         b, s = tokens.shape
         if positions is None:
@@ -412,7 +431,8 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None
         lb = z = zero
         for l in range(cfg.n_blocks):
             if remat and torch.is_grad_enabled():
-                x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False)
+                ctx = {"context_fn": dots_saveable} if remat == "dots" else {}
+                x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False, **ctx)
             else:
                 x, lb, z = block(x, lb, z, l)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": lb, "z": z}
@@ -490,20 +510,86 @@ def _attn_cache_cap(spec: LayerSpec, max_seq: int) -> int:
     return min(spec.window, max_seq) if spec.window else max_seq
 
 
-def init_mamba_cache(cfg: ModelConfig, batch: int, device=None) -> dict:
+def init_mamba_cache(cfg: ModelConfig, batch: int, device=None, mesh=None) -> dict:
     """Zero mamba decode state of ``batch`` rows (``ssm.init_mamba_state``),
-    stacked over n_blocks."""
+    stacked over n_blocks. With a ``mesh`` (the paged step's per-row state
+    pools) DTensors holding every row and, where ``model`` divides them,
+    a rank's heads and ``d_inner`` channels (``ssm.mesh_layout``)."""
     st = init_mamba_state(batch, cfg, device=device)
-    return {k: a[None].repeat(cfg.n_blocks, *([1] * a.dim())) for k, a in st.items()}
+    if mesh is None:
+        return {k: a[None].repeat(cfg.n_blocks, *([1] * a.dim())) for k, a in st.items()}
+    _, tp = mesh_layout(mesh, None, cfg)
+    specs = {"conv_x": P(None, None, None, tp), "conv_bc": P(), "ssm": P(None, None, tp)}
+    return {k: _zeros_placed((cfg.n_blocks, *a.shape), a.dtype, specs[k], mesh, device)
+            for k, a in st.items()}
+
+
+def _shard_shape(shape, spec, mesh) -> tuple:
+    """The local shape of a tensor of ``shape`` placed by ``spec``."""
+    sizes = mesh_shape(mesh)
+    out = []
+    for i, n in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        for a in () if entry is None else (entry if isinstance(entry, tuple) else (entry,)):
+            n //= sizes[a]
+        out.append(n)
+    return tuple(out)
+
+
+def _placed(local, spec, shape, mesh):
+    """A rank's shard ``local`` of a tensor of ``shape`` placed by ``spec``,
+    as the DTensor (no communication)."""
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local, mesh, placements(spec, mesh), run_check=False,
+                              shape=torch.Size(shape), stride=tuple(stride))
+
+
+def _zeros_placed(shape, dtype, spec, mesh, device, fill=0):
+    local = torch.full(_shard_shape(shape, spec, mesh), fill, dtype=dtype, device=device)
+    return _placed(local, spec, shape, mesh)
+
+
+def _coord(mesh, entry) -> tuple[int, int]:
+    """(this rank's index, count) over the mesh axes of a spec entry (None,
+    a name or names in mesh order): how a dim cut over them is split; (0, 1)
+    for None, without reading the mesh."""
+    idx, n = 0, 1
+    for a in () if entry is None else (entry if isinstance(entry, tuple) else (entry,)):
+        size = mesh_shape(mesh)[a]
+        idx, n = idx * size + mesh.get_local_rank(a), n * size
+    return idx, n
+
+
+def cache_layout(cfg: ModelConfig, batch: int, max_seq: int, mesh) -> tuple:
+    """(shapes, specs): the whole decode cache's leaves as meta tensors and
+    their ``cache_specs`` on ``mesh``."""
+    struct = init_decode_cache(cfg, batch, max_seq, device="meta")
+    return struct, cache_specs(struct, mesh, batch)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None,
                       mesh=None) -> DecodeCache:
-    """Zero caches on ``device``. With a ``mesh`` they are this rank's: its
-    KV heads (``layers.local_kv_heads``), every batch row, as the mesh
-    routes of ``decode_step`` and ``prefill`` read and write them."""
+    """Zero caches on ``device``. With a ``mesh`` each leaf is a DTensor
+    placed by ``cache_specs``, as JAX's cache is sharded: attention K/V and
+    ``kpos`` with the batch over the data-parallel axes and the sequence
+    over ``model`` (at a batch they do not divide, the sequence over every
+    axis), the Mamba2 state by batch and heads, the conv tails by batch
+    and channels, whisper's cross K/V by batch; a rank allocates its shard
+    only. ``lengths`` stays a plain tensor, the same on every rank."""
+    if mesh is not None:
+        struct, specs = cache_layout(cfg, batch, max_seq, mesh)
+        fill = lambda t: KPOS_INVALID if t.dtype == torch.int32 else 0
+        layers = tuple({k: _zeros_placed(t.shape, t.dtype, sp[k], mesh, device, fill(t))
+                        for k, t in c.items()} for c, sp in zip(struct.layers, specs.layers))
+        cross = (None if struct.cross is None else
+                 {k: _zeros_placed(t.shape, t.dtype, specs.cross[k], mesh, device)
+                  for k, t in struct.cross.items()})
+        return DecodeCache(lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+                           layers=layers, cross=cross)
     dt = getattr(torch, cfg.dtype)
-    kvh = L.local_kv_heads(cfg.n_kv_heads, mesh)
+    kvh = cfg.n_kv_heads
     nb = cfg.n_blocks
     layer_caches = []
     for spec in cfg.block:
@@ -550,12 +636,66 @@ def _layer_kv(cross, l: int):
 # Decode step (one new token per sequence)
 # ---------------------------------------------------------------------------
 
+def _write_and_attend(q, k, v, kc, vc, kp, lens, s_idx: int, cut: int, groups,
+                      softcap: float):
+    """One decode step's cache write and attention on a shard of a layer's
+    cache: kc, vc (B, cap_loc, KV, hd) and kp (B, cap_loc), the ``s_idx``-th
+    of ``cut`` slices of the ring's slots, for rows whose lengths are
+    ``lens``. The new token is written where its ring slot ``lens % cap``
+    lies in these slots; with the whole ring here (``cut`` 1) the attention
+    is ``layers.decode_attention``, else each rank attends over its slots
+    (``layers.decode_attention_partial``) and meets the ranks of ``groups``
+    that hold the row's other slots in ``layers.combine_partials``. The
+    unsharded cache is the shard (0, 1)."""
+    b, cap_loc = kc.shape[0], kc.shape[1]
+    at = (lens % (cap_loc * cut)).long()
+    bidx = torch.arange(b, device=q.device)
+    k, v, pos = k[:, 0], v[:, 0], lens
+    if cut > 1:               # a row whose slot another rank holds keeps its values
+        at = at - s_idx * cap_loc
+        mine = (at >= 0) & (at < cap_loc)
+        at = at.clamp(0, cap_loc - 1)
+        k = torch.where(mine[:, None, None], k, kc[bidx, at])
+        v = torch.where(mine[:, None, None], v, vc[bidx, at])
+        pos = torch.where(mine, pos, kp[bidx, at])
+    kc[bidx, at] = k
+    vc[bidx, at] = v
+    kp[bidx, at] = pos
+    if cut == 1:
+        return L.decode_attention(q, kc, vc, lengths=lens + 1, softcap=softcap, kpos=kp)
+    o, m, l = L.decode_attention_partial(q, kc, vc, lengths=lens + 1, softcap=softcap,
+                                         kpos=kp)
+    return L.combine_partials(o, m, l, groups).reshape(b, 1, -1).to(q.dtype)
+
+
+def _mesh_decode_attend(q, k, v, cache, lengths, cfg: ModelConfig, mesh):
+    """``_write_and_attend`` on a cache placed by ``cache_specs`` (a layer's
+    leaves: (B, cap, KV, hd) DTensors cut by rows and sequence slots), under
+    ``local_map``: each rank takes q, k and v of its rows with every head
+    and works on its shard. The output holds a rank's rows, replicated over
+    the rest."""
+    kc = cache["k"]
+    rows, seq = cut_axes(kc, 0), cut_axes(kc, 1)
+    groups = [mesh.get_group(a) for a in seq or () if mesh_shape(mesh)[a] > 1]
+    row_pl = placements(P(rows, None, None, None), mesh)
+
+    def attend(q, k, v, kc, vc, kp):
+        b_loc = kc.shape[0]
+        r, _ = _coord(mesh, rows)
+        return _write_and_attend(q, k, v, kc, vc, kp, lengths[r * b_loc:(r + 1) * b_loc],
+                                 *_coord(mesh, seq), groups, cfg.attn_softcap)
+
+    return local_map(attend, out_placements=row_pl,
+                     in_placements=(row_pl, row_pl, row_pl, kc.placements,
+                                    cache["v"].placements, cache["kpos"].placements),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, kc, cache["v"], cache["kpos"])
+
+
 def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions, mesh=None):
     """x: (B,1,D). cache: {"k","v","kpos"} of THIS layer, written in place.
-    With a ``mesh`` the cache write and the attention run under
-    ``local_map`` on this rank's heads, every row (the cache holds them,
-    ``init_decode_cache(mesh=)``)."""
-    b = x.shape[0]
+    With a ``mesh`` (the cache ``init_decode_cache(mesh=)``'s or
+    ``prefill(mesh=)``'s) through ``_mesh_decode_attend``."""
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = L.split_heads(x @ p["wq"], h, hd)
     k = L.split_heads(x @ p["wk"], kvh, hd)
@@ -566,22 +706,10 @@ def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions, mes
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-
-    def attend(q, k, v):
-        cap = cache["k"].shape[1]
-        slot = (lengths % cap).long()
-        bidx = torch.arange(b, device=q.device)
-        cache["k"][bidx, slot] = k[:, 0]
-        cache["v"][bidx, slot] = v[:, 0]
-        cache["kpos"][bidx, slot] = lengths
-        return L.decode_attention(q, cache["k"], cache["v"], lengths=lengths + 1,
-                                  softcap=cfg.attn_softcap, kpos=cache["kpos"])
-
     if mesh is not None and isinstance(q, DTensor):
-        pl = L.head_placements(mesh, None, kvh)
-        attend = local_map(attend, out_placements=pl, in_placements=(pl, pl, pl),
-                           device_mesh=mesh, redistribute_inputs=True)
-    return attend(q, k, v) @ p["wo"]
+        return _mesh_decode_attend(q, k, v, cache, lengths, cfg, mesh) @ p["wo"]
+    return _write_and_attend(q, k, v, cache["k"], cache["v"], cache["kpos"], lengths, 0, 1,
+                             (), cfg.attn_softcap) @ p["wo"]
 
 
 def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positions=None,
@@ -591,11 +719,12 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
     positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE; whisper
     adds its absolute position there and cross-attends to ``cache.cross``.
 
-    With a ``mesh`` (params DTensors, the cache this rank's,
-    ``init_decode_cache(mesh=)``) the residual is pinned to the batch over
-    the data-parallel axes at each block, attention and the MoE run under
-    ``local_map``, the Mamba2 step on every rank whole; the logits come
-    back plain and whole."""
+    With a ``mesh`` (params DTensors, the cache placed by ``cache_specs``,
+    ``init_decode_cache(mesh=)`` or ``prefill(mesh=)``) the residual is
+    pinned to the batch over the data-parallel axes at each block;
+    attention (``_mesh_decode_attend``), the Mamba2 step (on a rank's rows
+    and heads) and the MoE run under ``local_map``; the logits come back
+    plain and whole."""
     b = tokens.shape[0]
     lengths = cache.lengths
     if positions is None:
@@ -614,10 +743,9 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
                     h = _decode_attn_sublayer(h, p["attn"], cfg, layer_cache, lengths,
                                               positions, mesh)
                 else:
-                    h, new = replicated(mamba_decode_step, mesh, h, layer_cache, p["attn"],
-                                        cfg)
+                    h, new = mamba_decode_step(h, layer_cache, p["attn"], cfg)
                     for k, v in new.items():
-                        layer_cache[k].copy_(local_part(v))
+                        local_part(layer_cache[k]).copy_(local_part(v))
                 if cfg.post_norms:
                     h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
                 x = x + h
@@ -625,7 +753,7 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
                     h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
                     h = L.decode_cross_attention(h, p["cross"], cfg,
                                                  {"k": cache.cross["k"][l],
-                                                  "v": cache.cross["v"][l]})
+                                                  "v": cache.cross["v"][l]}, mesh)
                     x = x + h
                 x, _ = apply_ffn(x, p, spec, cfg, mesh)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -650,6 +778,32 @@ def _conv_tail(h, p, cfg: ModelConfig) -> dict:
             for name, w in (("conv_x", "in_x"), ("conv_bc", "in_bc"))}
 
 
+def _prefill_shard(k, v, spec, s: int, cap: int, mesh) -> tuple:
+    """A rank's shards (k, v, kpos) of one layer's prefill cache placed by
+    ``spec`` (``cache_specs``' spec of the leaf without its blocks dim):
+    ``k`` and ``v`` (B_loc, w, KV, hd) are the last ``w = min(s, cap)``
+    keys of the prompt's rows the rank holds, and it keeps those whose ring
+    slot ``pos % cap`` lies in its slots. Those keys are at most two runs,
+    one in each lap of the ring that the prompt's keys reach, so the writes
+    are slices known on the host: no shape depends on a tensor's values and
+    nothing waits for the card. Without a mesh (``spec`` P(None, None)) the
+    shard is the whole cache."""
+    idx, cut = _coord(mesh, spec[1])
+    cap_loc = cap // cut
+    first = s - k.shape[1]
+    kc = k.new_zeros((k.shape[0], cap_loc, *k.shape[2:]))
+    vc = torch.zeros_like(kc)
+    kp = torch.full((k.shape[0], cap_loc), KPOS_INVALID, dtype=torch.int32, device=k.device)
+    for lap in range(first - first % cap, s, cap):
+        lo = lap + idx * cap_loc            # the position of this lap's first slot here
+        a, z = max(first, lo), min(s, lo + cap_loc)
+        if a < z:
+            kc[:, a - lo:z - lo] = k[:, a - first:z - first]
+            vc[:, a - lo:z - lo] = v[:, a - first:z - first]
+            kp[:, a - lo:z - lo] = torch.arange(a, z, dtype=torch.int32, device=k.device)
+    return kc, vc, kp
+
+
 def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
             enc_frames=None, vis_embeds=None, mesh=None):
     """Process the prompt, build the decode cache. Returns (last_logits, cache).
@@ -660,14 +814,16 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
     numbers are the same, the encoder work half.
 
     With a ``mesh`` the forward is ``forward``'s mesh route and the cache
-    this rank's (``init_decode_cache(mesh=)``): its KV heads, every row; a
-    Mamba2 state and the cross K/V whole. The logits come back plain and
-    whole."""
+    is placed by ``cache_specs``, as ``init_decode_cache(mesh=)`` places it:
+    each rank writes its rows and ring slots of the attention caches, its
+    rows and heads of a Mamba2 state, and keeps its rows of the cross K/V.
+    The logits come back plain and whole."""
     b, s = tokens.shape
     dev = tokens.device
     if positions is None:
         positions = _positions(b, s, cfg, dev)
-    kvh = L.local_kv_heads(cfg.n_kv_heads, mesh)
+    if mesh is not None:
+        struct, specs = cache_layout(cfg, b, max_seq, mesh)
     with mesh_context(mesh):
         x = _constrain_batch(embed_tokens(params, tokens, cfg, vis_embeds), mesh)
         cross = (encode_cross_kv(params, enc_frames, cfg, mesh) if cfg.encoder_layers
@@ -679,34 +835,36 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
                 p = layer_params(params["blocks"][i], l)
                 hpre = L.rmsnorm(x, p["norm"], cfg.norm_eps)
                 if spec.kind != "attn":
-                    h, state = replicated(mamba_chunked, mesh, hpre, p["attn"], cfg,
-                                          return_state=True)
-                    tail = replicated(_conv_tail, mesh, hpre, p["attn"], cfg)
-                    caches[i].append({**{k: local_part(t) for k, t in tail.items()},
-                                      "ssm": local_part(state)})
+                    h, state = mamba_chunked(hpre, p["attn"], cfg, return_state=True, mesh=mesh)
+                    new = {**_conv_tail(hpre, p["attn"], cfg), "ssm": state}
+                    if mesh is not None:
+                        new = {k: constrain(t, mesh, P(*specs.layers[i][k][1:])).to_local()
+                               for k, t in new.items()}
+                    caches[i].append(new)
                     if cfg.post_norms:
                         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
                     x, _ = apply_ffn(x + h, p, spec, cfg, mesh)
                     continue
-                k, v = (L.local_heads(t, mesh, cfg.n_kv_heads)
-                        for t in L.project_kv(hpre, p["attn"], cfg, positions))
+                k, v = L.project_kv(hpre, p["attn"], cfg, positions)
                 cap = _attn_cache_cap(spec, max_seq)
-                kc = torch.zeros((b, cap, kvh, cfg.head_dim), dtype=k.dtype, device=dev)
-                vc = torch.zeros_like(kc)
-                kp = torch.full((b, cap), KPOS_INVALID, dtype=torch.int32, device=dev)
                 w = min(s, cap)
-                pos = s - w + torch.arange(w, device=dev)
-                sl = pos % cap
-                kc[:, sl] = k[:, -w:]
-                vc[:, sl] = v[:, -w:]
-                kp[:, sl] = pos.to(torch.int32)[None, :]
+                kv_spec = P(None, None)
+                if mesh is not None:
+                    kv_spec = P(*specs.layers[i]["k"][1:])
+                    rows = P(kv_spec[0], None, None, None)
+                    k, v = (constrain(t, mesh, rows).to_local() for t in (k, v))
+                kc, vc, kp = _prefill_shard(k[:, s - w:], v[:, s - w:], kv_spec, s, cap, mesh)
                 caches[i].append({"k": kc, "v": vc, "kpos": kp})
                 x, _ = _apply_sublayer(x, p, spec, cfg, positions=positions,
                                        cross_kv=_layer_kv(cross, l), mesh=mesh)
         x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
         logits = whole(logits_fn(params, x[:, -1:, :], cfg))
-        if cross is not None:
-            cross = {k: whole(t) for k, t in cross.items()}
+        if cross is not None and mesh is not None:
+            cross = {k: constrain(t, mesh, specs.cross[k]) for k, t in cross.items()}
+    layers = tuple(_stack(c) for c in caches)
+    if mesh is not None:
+        layers = tuple({k: _placed(t, sp[k], st[k].shape, mesh) for k, t in c.items()}
+                       for c, sp, st in zip(layers, specs.layers, struct.layers))
     cache = DecodeCache(lengths=torch.full((b,), s, dtype=torch.int32, device=dev),
-                        layers=tuple(_stack(c) for c in caches), cross=cross)
+                        layers=layers, cross=cross)
     return logits, cache

@@ -14,9 +14,12 @@ Background offload threads read pages out of the same tensors, so the engine
 runs each step under its pools lock; see ``engine.ServeEngine``.
 
 With a ``mesh`` (params DTensors, ``param_specs(fsdp=False)``) the pools are
-this rank's: its KV heads (``layers.local_kv_heads``), every page. The K/V
-write and the paged kernel run under ``local_map`` on those heads, the MoE
-through ``moe_ffn(mesh=)``, a Mamba2 step on every rank whole.
+this rank's: its KV heads (``layers.local_kv_heads``: a share of them, or
+under ``layers.head_split`` "q" the one KV head its query heads read), every
+page. The K/V write and the paged kernel run under ``local_map`` on a
+rank's query heads and those KV heads, the MoE through ``moe_ffn(mesh=)``,
+the Mamba2 step on a rank's heads (the state pools are DTensors cut by
+heads, ``transformer.init_mamba_cache(mesh=)``), every row.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import local_part, mesh_context, replicated, whole
+from repro_torch.distributed.sharding import local_part, mesh_context, whole
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -38,17 +41,18 @@ def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: i
     num_pages, page_size, KV, hd) in the config dtype for an attention
     position, per-row state pools {"conv_x", "conv_bc", "ssm"} (n_blocks,
     max_batch, ...) for a mamba position (``transformer.init_mamba_cache``).
-    With a ``mesh``, KV is this rank's share (``layers.local_kv_heads``)."""
+    With a ``mesh``, KV is this rank's share (``layers.local_kv_heads``) and
+    the mamba state DTensors cut by heads."""
     dt = getattr(torch, cfg.dtype)
-    shape = (cfg.n_blocks, num_pages, page_size, L.local_kv_heads(cfg.n_kv_heads, mesh),
-             cfg.head_dim)
+    kvh = L.local_kv_heads(cfg.n_heads, cfg.n_kv_heads, mesh)
+    shape = (cfg.n_blocks, num_pages, page_size, kvh, cfg.head_dim)
     pools = []
     for spec in cfg.block:
         if spec.kind == "attn":
             pools.append({"k": torch.zeros(shape, dtype=dt, device=device),
                           "v": torch.zeros(shape, dtype=dt, device=device)})
         else:
-            pools.append(T.init_mamba_cache(cfg, max_batch, device))
+            pools.append(T.init_mamba_cache(cfg, max_batch, device, mesh))
     return tuple(pools)
 
 
@@ -84,6 +88,7 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
             k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
 
         def attend(q, k, v):
+            k, v = (L.kv_for_rank(t, mesh, h, kvh) for t in (k, v))
             k_pool[pids, offs] = k[rows, 0]
             v_pool[pids, offs] = v[rows, 0]
             out = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool, page_table,
@@ -91,8 +96,8 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
             return out.reshape(b, 1, -1)
 
         if mesh is not None and isinstance(q, DTensor):
-            pl = L.head_placements(mesh, None, kvh)
-            attend = local_map(attend, out_placements=pl, in_placements=(pl, pl, pl),
+            q_pl, kv_pl, _ = L.head_placements(mesh, None, h, kvh)
+            attend = local_map(attend, out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl),
                                device_mesh=mesh, redistribute_inputs=True)
         return attend(q, k, v) @ p["wo"]
 
@@ -115,9 +120,9 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
                                            rows, pids, offs, page_table, lengths1, positions)
                     else:
                         state = T.layer_params(pools[i], l)
-                        hh, new = replicated(mamba_decode_step, mesh, hh, state, p["attn"], cfg)
+                        hh, new = mamba_decode_step(hh, state, p["attn"], cfg)
                         for k, v in new.items():
-                            state[k][rows] = local_part(v)[rows]
+                            local_part(state[k])[rows] = local_part(v)[rows]
                     if cfg.post_norms:
                         hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
                     x, _ = T.apply_ffn(x + hh, p, spec, cfg, mesh)

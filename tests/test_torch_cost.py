@@ -404,3 +404,35 @@ def test_sharded_matmul_counts_one_device_once(mesh_16x16):
         assert c.collective_counts["all-reduce"] == 1
         assert c.collective_bytes["all-reduce"] == 16 * 1024 * 4
         assert sum(c.collective_by_group.values()) == 16 * 1024 * 4
+
+
+@pytest.mark.parametrize("kv_heads", [1, 2])
+def test_rank_counts_half_the_attention_at_model_2(kv_heads):
+    """A prefill's attention core (``layers._attend``: the plain
+    attention's two products) counts, on a rank of a (1, 2) mesh, half the
+    world-1 FLOPs: the query heads are cut over ``model`` whether it
+    divides the KV heads (2) or not (1 KV head, each rank reading it,
+    ``layers.head_split`` "q")."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("prefill_64", 64, 2, "prefill")
+    over = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": kv_heads, "d_ff": 128,
+            "vocab": 256, "head_dim": 16, "dtype": "float32"}
+
+    def attention_flops(mesh) -> int:
+        counter = dryrun.count_cell("tinyllama-1.1b", shape, mesh, device="cpu",
+                                    cfg_overrides=over, breakdown=True)["counter"]
+        return sum(row[0] for path, row in counter.by_path.items()
+                   if "layers._attend" in path)
+
+    alone = attention_flops(None)
+    dryrun.start_fake_group(2)
+    try:
+        rank = attention_flops(init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    assert alone == 2 * 2 * (2 * 4 * 64 * 64 * 16) * 2      # 2 products, 2 layers
+    assert rank * 2 == alone

@@ -62,7 +62,7 @@ def check_cell(arch: str, shape: str, mesh: str, out_dir) -> None:
     assert set(res["roofline"]) >= {"compute_s", "memory_s", "collective_s", "bottleneck"}
     assert (out_dir / f"{arch}_{shape}_{mesh}.json").exists()
     assert set(res["collectives"]["by_axis"]) <= {"pod", "data", "model", "world"}
-    assert ("cache_layout" in res) == (res["mode"] == "decode")
+    assert "cache_layout" not in res        # the decode cache is JAX's layout now
 
 
 @pytest.fixture(autouse=True)
@@ -99,3 +99,39 @@ def test_sharded_train_cell_counts_a_256th_per_device():
                           verbose=False)
     assert res["flops_per_device"] == pytest.approx(alone / 256, rel=5e-3)
     assert res["collectives"]["total_bytes"] > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "jamba-v0.1-52b", "whisper-tiny"])
+def test_decode_cache_bytes_are_the_cache_specs_shards(arch):
+    """A decode cell's cache on (16, 16), as the dry run builds it, holds on
+    a rank the sum of its leaves' shards under the JAX package's
+    ``cache_specs`` (each dim divided by the sizes of the mesh axes its
+    spec names): the rows over ``data``, the KV sequence over ``model``,
+    the Mamba2 state by heads, whisper's cross K/V too."""
+    import math
+    from types import SimpleNamespace
+
+    import jax
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro.configs import get_config as jax_get_config
+    from repro.distributed import sharding as JS
+    from repro.launch.specs import cache_specs_struct
+
+    over, shp = reduced_overrides(arch), reduced_shape("decode_32k")
+    sizes = {"data": 16, "model": 16}
+    jcache = cache_specs_struct(dataclasses.replace(jax_get_config(arch), **over),
+                                shp.global_batch, shp.seq_len)
+    specs = JS.cache_specs(jcache, SimpleNamespace(shape=sizes), shp.global_batch)
+    want = 0
+    for leaf, spec in zip(jax.tree.leaves(jcache), jax.tree.leaves(
+            specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))):
+        dims = list(leaf.shape)
+        for i, entry in enumerate(spec):
+            for a in () if entry is None else (entry if isinstance(entry, tuple) else (entry,)):
+                dims[i] //= sizes[a]
+        want += math.prod(dims) * leaf.dtype.itemsize
+    mesh = dryrun.production_mesh("single", "cpu")
+    _, args, _, _ = dryrun.build_cell(arch, shp, mesh, device="cpu", mode=FakeTensorMode(),
+                                      cfg_overrides=over)
+    assert dryrun.local_bytes(args[1]) == want > 0

@@ -38,6 +38,7 @@ def test_kernel_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
         "from repro_torch.kernels import _build, flash_attention as fa, flush_score as fs\n"
         "from repro_torch.kernels import paged_attention as pa\n"
         "import repro_torch.core.sa_cache, repro_torch.launch.quickstart\n"
+        "import repro_torch.serving.fleet, repro_torch.serving.trace_shim\n"
         "q = torch.zeros(1, 2, 16); kp = torch.zeros(2, 4, 1, 16)\n"
         "out = ops.paged_attention(q, kp, kp, torch.zeros(1, 2, dtype=torch.int32),\n"
         "                          torch.ones(1, dtype=torch.int32))\n"
