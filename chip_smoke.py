@@ -8,9 +8,10 @@ Phases, each printing its own lines; any failure exits non-zero before the
 last line:
 
   1. device   the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build    compile the three hand-written CUDA kernels from ``src/``, one
+  2. build    compile the four hand-written CUDA sources from ``src/``, one
               nvcc each, all at once (timed; registers and spills; fails if
-              the wgmma flash kernel or a set-design flush kernel spills);
+              the wgmma flash kernel, a set-design flush kernel or any
+              attention backward kernel spills);
   3. kernels  each kernel against its plain PyTorch version on the card:
               paged attention on the kernel tests' shapes, hd 120, the
               serving shape and the split-K plan's edges (lengths 0, 1, a
@@ -33,7 +34,16 @@ last line:
               2e-5, bf16 2e-2, each launched as the design it expects, two
               runs bitwise equal), then at qwen3-8b's prefill shape and
               gemma2's sliding layer (TFLOP/s, ratios to SDPA and to the
-              bound); flush scores exactly equal on the kernel tests' grid,
+              bound); the attention backward kernel (``flash_attention_lse``
+              forward, ``flash_attention_backward``) on ``FLASH_BWD_CASES`` at
+              every head dim (16, 32, 64, 120, 128) in fp32 and bf16: causal,
+              gemma2's window of 4,096 with softcap 50, ``q_offset``, a window
+              narrower than a tile, Sq != Skv non-causal, rows with no valid
+              key (zero dq), GQA 1, 2, 4 and 8; dq, dk, dv held to
+              ``ref.flash_attention_bwd`` (relative L2 fp32 2e-5, bf16 1e-2),
+              the log-sum-exp to the plain one, each launched as the design
+              it expects (``mma`` for bf16 at 64/120/128, else ``simt``), two
+              runs bitwise equal; flush scores exactly equal on the kernel tests' grid,
               every set size of the set design (1-16) and the slot design's
               17, 64 and 256, blocks of 128 sets short, whole and past, views
               [1:] that are not 16-byte aligned, and 2,100 and 131,072 sets
@@ -94,28 +104,36 @@ last line:
               plain-attention prefill, then the serve phase on text prompts
               (M-RoPE positions); at 2 layers in fp32, phase 4's exact check;
  10. train    the training path (``launch/steps.make_train_step``: forward
-              with remat, chunked loss, AdamW; the flash kernel forward under
-              ``ops.FlashAttention``, whose backward is PyTorch ops): at full
+              with remat, chunked loss, AdamW; under ``ops.FlashAttention``
+              the flash kernel forward and the attention backward kernel;
+              ``ref.flash_attention_bwd`` runs on no CUDA tensor of phases
+              10-11, counted): at full
               width and 2 layers in fp32 (whisper-tiny at full size) for
               tinyllama-1.1b, olmoe-1b-7b, mamba2-780m and whisper-tiny, one
               step's gradient (``make_grad_fn``, batch 4 x 512, 2
               microbatches) through the kernel and through the plain version: losses within 1e-5 relative, every
               gradient leaf within 1e-5 relative L2 and nonzero through the
               kernel, flash launches = attention calls x 2 (forward and the
-              recompute) x microbatches, all simt; tinyllama in bf16: 1e-2,
-              2e-2, all wgmma; ``remat="dots"`` (JAX's dots_saveable as a
+              recompute) x microbatches, all simt, backward launches one an
+              attention call and microbatch; tinyllama in bf16: 1e-2, 2e-2,
+              all wgmma and mma; ``remat="dots"`` (JAX's dots_saveable as a
               selective checkpoint) against remat=True for tinyllama at 2 fp32
               layers: every gradient leaf within 1e-5 relative L2, flash
               launched by the forward only; one attention call at tinyllama's training
               shape (4 x 2,048, bf16): the Function's output and dq, dk, dv
               held to the plain version's and its autograd's (2e-2, 1e-2
-              relative L2) and timed beside SDPA's backward; then
+              relative L2); the backward kernel timed alone (CUDA graph)
+              beside the plain version (``ref.flash_attention_bwd``), SDPA's
+              backward and the bound, and the Function's backward as autograd
+              runs it; then
               tinyllama-1.1b at its published size, bf16
               with an f32 master copy, 20 steps of batch 8 x 2,048 from
               SyntheticLM through the Prefetcher, a checkpoint at step 9 and at
               the end (save, wait and drain timed), the end's restored into
               fresh weights bitwise equal to the trained state, steps 10-19
-              rerun from step 9's restore within 1e-3 relative; the median
+              rerun from step 9's restore within 1e-3 relative; 880 backward
+              launches in the 20 steps (22 layers x 2 microbatches x 20), all
+              mma; the median
               step, tokens/s, the model-FLOP share, torch.profiler's busy share
               and device ms by flash forward, attention backward, GEMMs and
               optimizer, the peak memory; then 3 more steps under
@@ -129,7 +147,8 @@ last line:
               8 x 2,048 by ``make_global_batch``, 2 microbatches, remat, 5
               steps on phase 10's weights and batches: the losses within
               1e-5 relative of phase 10's (bitwise or not printed), flash
-              launches through ``local_map`` = the unsharded route's count,
+              and backward launches through ``local_map`` = the unsharded
+              route's counts,
               the median step beside phase 10's; the int8 error-feedback
               quantization of its gradient leaves equal to the CPU's (elements
               differing counted) and one compressed pass timed; olmoe-1b-7b
@@ -187,7 +206,9 @@ its times at 131,072 and 1,048,576 sets of 12 rotated past the L2, and the
 SASS of its library (``cuobjdump -sass``; the text beside the library).
 ``--backward-probe SRC`` does the same for the attention backward at
 tinyllama's training shape (``time_attention_backward``: the Function's
-output and gradients held to the plain version's, then timed).
+output and gradients held to the plain version's, then timed; a package
+without the backward kernel, as an earlier commit's, times the Function
+and the plain version only).
 ``--mesh-probe SRC`` does the same for phase 11's timed runs at world 1
 (``mesh_probe``): tinyllama's mesh train step, olmoe-1b-7b's mesh decode
 step and qwen3-8b's dense decode unsharded and through ``mesh=``
@@ -287,9 +308,23 @@ FLASH_CASES = [
     (4, 2048, 2048, 32, 4, 64, True, 0, 0.0, 0),    # tinyllama-1.1b training microbatch
 ]
 NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
-WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes the wgmma kernel
+WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes wgmma (forward), mma (backward)
 FLASH_SLICE = (1, 4096, 32, 8, 128)       # qwen3-8b prefill: B, S, H, KV, hd (causal, bf16)
 GEMMA2_SWA = (1, 8192, 32, 16, 128, 4096, 50.0)  # gemma2-27b sliding layer: ..., window, softcap
+FLASH_BWD_CASES = [
+    # b, sq, skv, h, kv, causal, window, softcap, q_offset: each at every FLASH_BWD_HEAD_DIMS
+    (2, 300, 300, 8, 8, True, 0, 0.0, 0),          # causal, GQA 1
+    (1, 4608, 4608, 4, 2, True, 4096, 50.0, 0),    # gemma2's window of 4,096, softcap 50; GQA 2
+    (1, 127, 1000, 8, 2, True, 0, 0.0, 873),       # the q_offset tail, GQA 4
+    (2, 64, 192, 8, 1, False, 0, 0.0, 0),          # Sq != Skv, non-causal, GQA 8
+    (4, 4, 1500, 6, 6, False, 0, 0.0, 0),          # whisper-tiny's cross-attention
+    (1, 130, 200, 4, 2, True, 4, 0.0, 197),        # rows 6.. have no valid key: zero dq
+    (1, 100, 300, 4, 2, True, 20, 0.0, 150),       # a window narrower than a tile, q_offset
+    (1, 1000, 1000, 4, 2, True, 100, 0.0, 0),      # a window not a multiple of a tile
+]
+FLASH_BWD_HEAD_DIMS = (16, 32, 64, 120, 128)
+BWD_REL_L2 = {"float32": 2e-5, "bfloat16": 1e-2}   # dq, dk, dv against the plain version
+LSE_TOL = {"float32": 2e-5, "bfloat16": 1e-3}      # the forward's log-sum-exp, atol = rtol
 FLUSH_GRID = [(100, 12), (1000, 12), (64, 7), (513, 16), (1, 12), (256, 2),   # tests
               (127, 12), (128, 12), (129, 12),   # a set-design block (128 sets) -1, 0, +1
               *[(1000, ss) for ss in range(1, 17)],  # every set-design instantiation
@@ -703,6 +738,71 @@ def time_flash(torch, card: str, shape, *, window: int, softcap: float, with_pla
             "library": library_name, "bound_ms": bound_s * 1e3, "bound_by": bound_by,
             "flops": flops, "tflops": tflops, "shape": [b, s, h, kv, hd], "window": window,
             "softcap": softcap}
+
+
+def phase_flash_bwd(torch, seed: int, card: str) -> dict:
+    """The attention backward kernel against its plain version: for each of
+    ``FLASH_BWD_CASES`` at every head dim, fp32 and bf16, the forward kernel's
+    output and log-sum-exp (``flash_attention_lse``; the lse held to
+    ``ref.flash_attention_lse``'s, +inf where a row has no valid key), then
+    ``flash_attention_backward`` twice (bitwise equal, launched as the design
+    the input takes) against ``ref.flash_attention_bwd`` on the same inputs
+    and output (``BWD_REL_L2``); rows with no valid key get a zero dq."""
+    import repro_torch.kernels.ops  # registers torch.ops.repro_torch.*  # noqa: F401
+    from repro_torch.kernels import flash_attention_bwd as bwd_mod
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(seed + 3)
+    by_design = bwd_mod.flash_attention_bwd.launches_by_design
+    ops = torch.ops.repro_torch
+    errs, rels, n = {}, {}, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        errs[name] = rels[name] = 0.0
+        for case in FLASH_BWD_CASES:
+            for hd in FLASH_BWD_HEAD_DIMS:
+                b, sq, skv, h, kv, causal, window, cap, q_offset = case
+                q, k, v, do = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                               .to("cuda", dtype) for shape in
+                               ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
+                args = (causal, window, cap, q_offset)
+                kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
+                kind = "mma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+                out, lse = ops.flash_attention_lse(q, k, v, *args)
+                before = by_design[kind]
+                grads = ops.flash_attention_backward(q, k, v, out, lse, do, *args)
+                again = ops.flash_attention_backward(q, k, v, out, lse, do, *args)
+                torch.cuda.synchronize()
+                launched = by_design[kind] - before
+                same = all(torch.equal(x, y) for x, y in zip(grads, again))
+                wants = ref.flash_attention_bwd(q, k, v, out, do, **kw)
+                rel = max(rel_l2(g, w) for g, w in zip(grads, wants))
+                err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, wants))
+                want_lse = ref.flash_attention_lse(q, k, v, **kw)[1]
+                empty = torch.isinf(want_lse)
+                lse_ok = (bool(torch.equal(torch.isinf(lse), empty))
+                          and bool(torch.allclose(lse[~empty], want_lse[~empty],
+                                                  atol=LSE_TOL[name], rtol=LSE_TOL[name])))
+                rows_empty = empty[0, 0]                 # the masks are the same for every head
+                zero_dq = bool((grads[0][:, rows_empty] == 0).all())
+                ok = rel <= BWD_REL_L2[name] and lse_ok and zero_dq
+                errs[name] = max(errs[name], err)
+                rels[name] = max(rels[name], rel)
+                n += 1
+                print(f"[kernels] flash_attention_bwd {case} hd {hd} {name} ({kind}): rel L2 "
+                      f"{rel:.2e} (tol {BWD_REL_L2[name]:g}), max_abs_err {err:.3e}, lse "
+                      f"{'ok' if lse_ok else 'DIFFERENT'}, {int(rows_empty.sum())} rows with no "
+                      f"key{' (zero dq)' if zero_dq else ' GET A DQ'}, rerun bitwise "
+                      f"{'equal' if same else 'DIFFERENT'} {'ok' if ok else 'FAIL'}", flush=True)
+                check(ok, f"flash_attention_bwd {case} hd {hd} {dtype}: kernel disagrees with "
+                      "the plain version")
+                check(launched == 2, f"flash_attention_bwd {case} hd {hd} {dtype}: not launched "
+                      f"as {kind}")
+                check(same, f"flash_attention_bwd {case} hd {hd} {dtype}: two runs differ")
+                del q, k, v, do, out, lse, grads, again, wants
+                free_memory(torch)
+    return {"cases": n, "max_err_fp32": errs["float32"], "max_err_bf16": errs["bfloat16"],
+            "max_rel_l2_fp32": rels["float32"], "max_rel_l2_bf16": rels["bfloat16"]}
 
 
 def flush_inputs(torch, ns: int, ss: int, rng, device="cuda"):
@@ -2088,11 +2188,38 @@ def flash_per_microbatch(cfg) -> int:
     return cfg.encoder_layers + 2 * per_block
 
 
+def backward_per_microbatch(cfg) -> int:
+    """Backward kernel launches of one microbatch: one for each attention
+    call of the forward (the recompute adds none)."""
+    return cfg.encoder_layers + attn_layers(cfg) * (2 if cfg.encoder_layers else 1)
+
+
+@contextlib.contextmanager
+def plain_backward_on_card(calls: list):
+    """Appends to ``calls`` the shape of q at each call of the plain
+    ``ref.flash_attention_bwd`` on a CUDA tensor while it is active: on the
+    training path the backward is the kernel, so none may come."""
+    from repro_torch.kernels import ref
+
+    plain = ref.flash_attention_bwd
+
+    def counted(q, *args, **kw):
+        if q.is_cuda:
+            calls.append(tuple(q.shape))
+        return plain(q, *args, **kw)
+
+    ref.flash_attention_bwd = counted
+    try:
+        yield
+    finally:
+        ref.flash_attention_bwd = plain
+
+
 def train_route(torch, cfg, params, batch: dict, kernels: dict, plain: bool) -> dict:
     """The train step's gradient and metrics (``make_grad_fn``, which
     ``make_train_step`` runs before AdamW; remat, the microbatches of
-    ``TRAIN_EXACT_SHAPE``), with the flash kernel or (``plain``) the plain
-    version forward, its launches counted."""
+    ``TRAIN_EXACT_SHAPE``), with the flash kernels (forward and backward) or
+    (``plain``) the plain version forward under autograd, launches counted."""
     from repro_torch.launch.steps import make_grad_fn
 
     grad_fn = make_grad_fn(cfg, remat=True, microbatches=TRAIN_EXACT_SHAPE[2])
@@ -2100,9 +2227,9 @@ def train_route(torch, cfg, params, batch: dict, kernels: dict, plain: bool) -> 
         zero_launches(kernels)
         grads, metrics = grad_fn(params, batch)
         torch.cuda.synchronize()
-        launches, designs = read_launches(kernels), read_designs(kernels)["flash_attention"]
+        launches, designs = read_launches(kernels), read_designs(kernels)
     return {"ce": float(metrics["ce"]), "grads": grads, "launches": launches,
-            "designs": designs}
+            "designs": designs["flash_attention"], "bwd_designs": designs["flash_attention_bwd"]}
 
 
 def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
@@ -2127,7 +2254,9 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
     finite = all(bool(torch.isfinite(g).all()) for g in flatten_with_paths(kern["grads"]).values())
     loss_rel = abs(kern["ce"] - plain["ce"]) / abs(plain["ce"])
     want = flash_per_microbatch(cfg) * mb
+    want_bwd = backward_per_microbatch(cfg) * mb
     design = "simt" if dtype == "float32" else "wgmma"
+    bwd_design = "simt" if dtype == "float32" else "mma"
     worst = max(rel, key=rel.get)
     res = {"arch": arch, "dtype": dtype, "layers": cfg.n_layers, "batch": b, "seq": s,
            "microbatches": mb, "ce_kernel": kern["ce"], "ce_plain": plain["ce"],
@@ -2135,13 +2264,18 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
            "worst_leaf": worst, "zero_grad_leaves": zero, "flash_launches":
            kern["launches"]["flash_attention"], "flash_expected": want,
            "designs": kern["designs"], "plain_route_flash_launches":
-           plain["launches"]["flash_attention"]}
+           plain["launches"]["flash_attention"],
+           "backward_launches": kern["launches"]["flash_attention_bwd"],
+           "backward_expected": want_bwd, "backward_designs": kern["bwd_designs"],
+           "plain_route_backward_launches": plain["launches"]["flash_attention_bwd"]}
     print(f"[train] {arch} {dtype} d_model {cfg.d_model}, {cfg.n_layers} layers, batch {b} x "
           f"{s}, {mb} microbatches, remat: ce kernel route {kern['ce']:.6f} vs plain "
           f"{plain['ce']:.6f} (rel {loss_rel:.2e}, tol {loss_tol:g}); {len(rel)} gradient "
           f"leaves, max rel L2 {rel[worst]:.2e} ({worst}; tol {grad_tol:g}), zero leaves "
           f"{zero}; flash launches {res['flash_launches']} (expected {want}) {kern['designs']}, "
-          f"plain route {res['plain_route_flash_launches']}", flush=True)
+          f"backward launches {res['backward_launches']} (expected {want_bwd}) "
+          f"{kern['bwd_designs']}, plain route {res['plain_route_flash_launches']} and "
+          f"{res['plain_route_backward_launches']}", flush=True)
     check(loss_rel <= loss_tol, f"train {arch} {dtype}: loss differs from the plain route's")
     check(rel[worst] <= grad_tol, f"train {arch} {dtype}: gradient leaf {worst} differs "
           f"from the plain route's by {rel[worst]:.2e} relative L2")
@@ -2149,7 +2283,11 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
           f"gradient through the kernel route: {zero}")
     check(res["flash_launches"] == want and kern["designs"][design] == want,
           f"train {arch} {dtype}: {kern['designs']} flash launches, expected {want} {design}")
-    check(res["plain_route_flash_launches"] == 0, f"train {arch}: the plain route launched flash")
+    check(res["backward_launches"] == want_bwd and kern["bwd_designs"][bwd_design] == want_bwd,
+          f"train {arch} {dtype}: {kern['bwd_designs']} backward launches, expected {want_bwd} "
+          f"{bwd_design}")
+    check(res["plain_route_flash_launches"] == res["plain_route_backward_launches"] == 0,
+          f"train {arch}: the plain route launched a flash kernel")
     del params, batch, kern, plain
     free_memory(torch)
     return res
@@ -2175,25 +2313,30 @@ def train_dots(torch, seed: int, kernels: dict) -> dict:
         zero_launches(kernels)
         grads, metrics = make_grad_fn(cfg, remat=remat, microbatches=mb)(params, batch)
         torch.cuda.synchronize()
+        launches = read_launches(kernels)
         out[remat] = (flatten_with_paths(grads), float(metrics["ce"]),
-                      read_launches(kernels)["flash_attention"])
-    (full, ce_full, n_full), (dots, ce_dots, n_dots) = out[True], out["dots"]
+                      launches["flash_attention"], launches["flash_attention_bwd"])
+    (full, ce_full, n_full, b_full), (dots, ce_dots, n_dots, b_dots) = out[True], out["dots"]
     rel = {k: rel_l2(dots[k], full[k]) for k in full}
     worst = max(rel, key=rel.get)
     want = (attn_layers(cfg) * mb, flash_per_microbatch(cfg) * mb)
     res = {"arch": cfg.name, "layers": cfg.n_layers, "batch": b, "seq": s, "microbatches": mb,
            "ce_dots": ce_dots, "ce_remat": ce_full, "max_grad_rel_l2": rel[worst],
            "worst_leaf": worst, "flash_launches": {"dots": n_dots, "remat": n_full},
-           "flash_expected": {"dots": want[0], "remat": want[1]}}
+           "flash_expected": {"dots": want[0], "remat": want[1]},
+           "backward_launches": {"dots": b_dots, "remat": b_full}, "backward_expected": want[0]}
     print(f"[train] remat='dots' vs remat=True, {cfg.name} fp32 {cfg.n_layers} layers, batch "
           f"{b} x {s}, {mb} microbatches: ce {ce_dots:.6f} vs {ce_full:.6f}; {len(rel)} leaves, "
           f"max rel L2 {rel[worst]:.2e} ({worst}; tol {TRAIN_DOTS_TOL:g}); flash launches "
           f"{n_dots} under 'dots' (expected {want[0]}: no recompute), {n_full} under True "
-          f"(expected {want[1]})", flush=True)
+          f"(expected {want[1]}); backward launches {b_dots} and {b_full} (expected {want[0]})",
+          flush=True)
     check(rel[worst] <= TRAIN_DOTS_TOL, f"train: remat='dots' gradient leaf {worst} differs "
           f"from remat=True's by {rel[worst]:.2e} relative L2")
     check((n_dots, n_full) == want, f"train: flash launches {n_dots} / {n_full} under 'dots' / "
           f"True, expected {want}")
+    check(b_dots == b_full == want[0], f"train: backward launches {b_dots} / {b_full} under "
+          f"'dots' / True, expected {want[0]}")
     del params, batch, out, full, dots
     free_memory(torch)
     return res
@@ -2220,14 +2363,15 @@ def dots_steps(torch, cfg, params, opt, data, first: int, kernels: dict) -> dict
         params, opt, met = step_fn(params, opt, batch)
         losses.append(float(met["ce"]))
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = read_launches(kernels)["flash_attention"]
+    counts = read_launches(kernels)
+    launches, backward = counts["flash_attention"], counts["flash_attention_bwd"]
     want = cfg.n_layers * mb * TRAIN_DOTS_STEPS
     res = {"step_ms": ms, "median_step_ms": statistics.median(ms[1:]), "losses": losses,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "flash_launches": launches,
-           "flash_expected": want}
+           "flash_expected": want, "backward_launches": backward}
     check(all(np.isfinite(losses)), "train: a loss under remat='dots' is not finite")
-    check(launches == want, f"train: {launches} flash launches in {TRAIN_DOTS_STEPS} steps "
-          f"under remat='dots', expected {want}")
+    check(launches == backward == want, f"train: {launches} flash and {backward} backward "
+          f"launches in {TRAIN_DOTS_STEPS} steps under remat='dots', expected {want} each")
     return res
 
 
@@ -2328,6 +2472,7 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
         it.close()
     launches = read_launches(kernels)
     designs = read_designs(kernels)["flash_attention"]
+    bwd_designs = read_designs(kernels)["flash_attention_bwd"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     t0 = time.perf_counter()
     committed = ckpt.wait_for_commit(TRAIN_CKPT_STEP, 600)
@@ -2391,7 +2536,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
            "step_ms": ms, "median_step_ms": median, "tokens_per_s": tokens / median * 1e3,
            "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
            "mfu": model_flops / (median / 1e3) / BF16_PEAK_FLOPS, "peak_gb": peak_gb,
-           "launches": launches, "designs": designs, "checkpoint": save,
+           "launches": launches, "designs": designs, "backward_designs": bwd_designs,
+           "checkpoint": save,
            "restore_bitwise": same, "resumed_losses": rerun, "resume_max_rel": resume_rel,
            "profile": prof, "busy_share": busy / median if busy else None, "dots": dots,
            "ckpt_trace": ckpt_trace, "card": card}
@@ -2404,7 +2550,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
           f"{100 * res['mfu']:.2f} % of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s (6 N tokens + "
           f"6 L H hd S tokens of causal attention = {model_flops / 1e12:.1f} TFLOP a step, "
           f"N = {n_matmul:,}, the parameters less the untied input embedding); peak {peak_gb:.1f} GB; flash launches {launches['flash_attention']} "
-          f"{designs} on {card}", flush=True)
+          f"{designs}, backward launches {launches['flash_attention_bwd']} {bwd_designs} on "
+          f"{card}", flush=True)
     split = prof["split_ms_per_step"]
     print(f"[train] torch.profiler over {TRAIN_PROFILED} resumed steps: device busy "
           f"{busy:.1f} ms a step = {100 * (res['busy_share'] or 0):.1f} % of the median step; "
@@ -2422,7 +2569,8 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     print(f"[train] remat='dots' at full size, {TRAIN_DOTS_STEPS} steps after the "
           f"{TRAIN_STEPS}: median step {dots['median_step_ms']:.1f} ms (steps "
           f"{', '.join(f'{x:.1f}' for x in dots['step_ms'])}), peak {dots['peak_gb']:.1f} GB, "
-          f"flash launches {dots['flash_launches']} (the forward only), beside remat=True's "
+          f"flash launches {dots['flash_launches']} (the forward only), backward "
+          f"{dots['backward_launches']}, beside remat=True's "
           f"median {median:.1f} ms and peak {peak_gb:.1f} GB in this run, on {card}", flush=True)
     check(all(np.isfinite(losses)) and all(np.isfinite(norms)) and all(np.isfinite(list(rerun.values()))),
           "train: a loss or grad norm is not finite")
@@ -2431,6 +2579,10 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     want = cfg.n_layers * 2 * mb * TRAIN_STEPS
     check(launches["flash_attention"] == want and designs["wgmma"] == want,
           f"train: {designs} flash launches in {TRAIN_STEPS} steps, expected {want} wgmma")
+    want_bwd = cfg.n_layers * mb * TRAIN_STEPS
+    check(launches["flash_attention_bwd"] == want_bwd and bwd_designs["mma"] == want_bwd,
+          f"train: {bwd_designs} backward launches in {TRAIN_STEPS} steps, expected {want_bwd} "
+          "mma")
     return res
 
 
@@ -2447,12 +2599,17 @@ def time_attention_backward(torch, card: str) -> dict:
     microbatch of 4 x 2,048, H 32, KV 4, hd 64, causal, bf16): first
     ``ops.flash_attention``'s output held to the plain version's
     (``FLASH_BF16_TOL``) and its dq, dk, dv to autograd through the plain
-    version (``TRAIN_ATTN_GRAD_TOL`` relative L2); then the backward
-    of ``ops.flash_attention`` (``ref.flash_attention_bwd``), of autograd
-    through the plain version, and of ``scaled_dot_product_attention``
-    (the library's, timed as a yardstick only), beside the bound of the
-    function (dq, dk, dv from q, k, v, do: the five S x S x hd products of
-    a causal backward at the bf16 peak; the bytes are far below it)."""
+    version (``TRAIN_ATTN_GRAD_TOL`` relative L2). Then, timed: the backward
+    kernel alone (``flash_attention_backward`` on the forward kernel's output
+    and log-sum-exp; device time, CUDA graph replay), its plain version
+    ``ref.flash_attention_bwd``, ``scaled_dot_product_attention``'s backward
+    (the library's, a yardstick only) and, as autograd runs them (eager,
+    host launches included), the Function's backward and autograd through
+    the plain version; beside the bound of the function (dq, dk, dv from q,
+    k, v, out, do: ``flash_attention_bwd.cost``, the five products of each
+    causal pair at the bf16 peak; the bytes are far below it). A package
+    without the backward kernel (an earlier commit's, ``--backward-probe``)
+    gets the eager times only."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -2470,11 +2627,12 @@ def time_attention_backward(torch, card: str) -> dict:
     out_ok = bool(torch.allclose(out.float(), want.float(), atol=FLASH_BF16_TOL,
                                  rtol=FLASH_BF16_TOL))
     grad_rel = dict(zip(("dq", "dk", "dv"), (rel_l2(g, w) for g, w in zip(grads, wants))))
+    grad_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, wants))
     print(f"[train] attention at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
           f"ops.flash_attention's output vs the plain version max_abs_err {out_err:.3e} (tol "
           f"{FLASH_BF16_TOL:g}); its gradients vs autograd through the plain version, "
           f"relative L2 " + ", ".join(f"{n} {e:.2e}" for n, e in grad_rel.items())
-          + f" (tol {TRAIN_ATTN_GRAD_TOL:g})", flush=True)
+          + f" (tol {TRAIN_ATTN_GRAD_TOL:g}), max_abs_err {grad_err:.3e}", flush=True)
     check(out_ok, f"attention at {TRAIN_ATTN_SHAPE}: the kernel disagrees with the plain version")
     check(max(grad_rel.values()) <= TRAIN_ATTN_GRAD_TOL, f"attention at {TRAIN_ATTN_SHAPE}: "
           f"the Function's gradients differ from the plain version's autograd: {grad_rel}")
@@ -2486,21 +2644,42 @@ def time_attention_backward(torch, card: str) -> dict:
         run = lambda _: torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
         return time_ms(torch, run, iters)
 
-    t = {"ms": backward_ms(lambda: ops.flash_attention(q, k, v), 5),
-         "plain_ms": backward_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
+    t = {"function_ms": backward_ms(lambda: ops.flash_attention(q, k, v), 5),
+         "autograd_plain_ms": backward_ms(lambda: ref.flash_attention_ref(q, k, v), 3),
          "library_ms": backward_ms(lambda: F.scaled_dot_product_attention(
              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-             enable_gqa=True).transpose(1, 2), 10)}
-    flops = 5 * 2 * b * h * s * s * hd / 2
-    nbytes = 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2
-    t.update(shape=[b, s, h, kv, hd], out_max_abs_err=out_err, grad_rel_l2=grad_rel, flops=flops, bytes=nbytes, bound_by="operations",
-             bound_ms=max(flops / BF16_PEAK_FLOPS, nbytes / hbm_bytes_per_s(card)) * 1e3)
+             enable_gqa=True).transpose(1, 2), 10),
+         "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True) backward"}
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+        t["plain_ms"] = time_ms(torch, lambda _: ref.flash_attention_bwd(q, k, v, out, do), 3)
+        if hasattr(torch.ops.repro_torch, "flash_attention_backward"):
+            from repro_torch.kernels import flash_attention_bwd as bwd_mod
+
+            ops_ = torch.ops.repro_torch
+            out, lse = ops_.flash_attention_lse(q, k, v, True, 0, 0.0, 0)
+            t["ms"] = graph_ms(torch, lambda _: ops_.flash_attention_backward(
+                q, k, v, out, lse, do, True, 0, 0.0, 0), 3, reps=5)
+            work = bwd_mod.cost(tuple(q.shape), tuple(k.shape), 2, causal=True)
+    if "ms" not in t:          # an earlier package: the bound as it was counted then
+        work = {"flops": 5 * 2 * b * h * s * s * hd // 2,
+                "bytes": 2 * (2 * b * s * h * hd + 2 * b * s * kv * hd) * 2}
+    bound_s = max(work["flops"] / BF16_PEAK_FLOPS, work["bytes"] / hbm_bytes_per_s(card))
+    t.update(shape=[b, s, h, kv, hd], out_max_abs_err=out_err, grad_rel_l2=grad_rel,
+             grad_max_abs_err=grad_err, flops=work["flops"], bytes=work["bytes"],
+             bound_ms=bound_s * 1e3, bound_by="operations"
+             if work["flops"] / BF16_PEAK_FLOPS >= work["bytes"] / hbm_bytes_per_s(card)
+             else "bytes")
+    kernel = (f"the backward kernel {t['ms']:.4f} ms (CUDA graph replay, "
+              f"{work['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), " if "ms" in t else "")
     print(f"[train] attention backward at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
-          f"ops.flash_attention's {t['ms']:.2f} ms, autograd of the plain version "
-          f"{t['plain_ms']:.2f} ms, scaled_dot_product_attention's {t['library_ms']:.3f} ms; "
-          f"bound {t['bound_ms']:.3f} ms by operations ({flops:.3e} FLOP at "
-          f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s) on {card}", flush=True)
-    del q, k, v, do
+          f"{kernel}ops.flash_attention's backward under autograd {t['function_ms']:.3f} ms, "
+          f"the plain version (ref.flash_attention_bwd) {t['plain_ms']:.2f} ms, autograd of "
+          f"the plain forward {t['autograd_plain_ms']:.2f} ms, scaled_dot_product_attention's "
+          f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms by {t['bound_by']} "
+          f"({work['flops']:.4e} FLOP at {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; {work['bytes']} B)"
+          f" on {card}", flush=True)
+    del q, k, v, do, out
     free_memory(torch)
     return t
 
@@ -2509,18 +2688,30 @@ def phase_train(torch, seed: int, kernels: dict, card: str) -> dict:
     """Phase 10: the kernel route against the plain route, fp32 for each
     of ``TRAIN_EXACT`` and bf16 for tinyllama, ``remat="dots"`` against
     ``remat=True``, then tinyllama-1.1b trained at full size."""
-    exact = {arch: train_exact(torch, arch, "float32", seed, kernels) for arch in TRAIN_EXACT}
-    exact["tinyllama-1.1b bf16"] = train_exact(torch, "tinyllama-1.1b", "bfloat16", seed,
-                                               kernels)
-    dots = train_dots(torch, seed, kernels)
-    backward = time_attention_backward(torch, card)
-    full = train_full(torch, seed, kernels, card)
+    plain_bwd = []
+    with plain_backward_on_card(plain_bwd):
+        exact = {arch: train_exact(torch, arch, "float32", seed, kernels)
+                 for arch in TRAIN_EXACT}
+        exact["tinyllama-1.1b bf16"] = train_exact(torch, "tinyllama-1.1b", "bfloat16", seed,
+                                                   kernels)
+        dots = train_dots(torch, seed, kernels)
+    backward = time_attention_backward(torch, card)      # times the plain version too
+    with plain_backward_on_card(plain_bwd):
+        full = train_full(torch, seed, kernels, card)
+    print(f"[train] ref.flash_attention_bwd on a CUDA tensor in the route checks, the 'dots' "
+          f"check and the full-size run: {len(plain_bwd)} calls", flush=True)
+    check(not plain_bwd, f"train: the plain backward ran on the card: {plain_bwd[:4]}")
     launches = {**{f"{k} route check": r["flash_launches"] for k, r in exact.items()},
                 "remat dots check": dots["flash_launches"]["dots"],
                 "tinyllama-1.1b full": full["launches"]["flash_attention"],
                 "tinyllama-1.1b full, remat dots": full["dots"]["flash_launches"]}
+    bwd = {**{f"{k} route check": r["backward_launches"] for k, r in exact.items()},
+           "remat dots check": dots["backward_launches"]["dots"],
+           "tinyllama-1.1b full": full["launches"]["flash_attention_bwd"],
+           "tinyllama-1.1b full, remat dots": full["dots"]["backward_launches"]}
     return {"exact": exact, "dots": dots, "attention_backward": backward, "full": full,
-            "flash_launches": launches}
+            "flash_launches": launches, "backward_launches": bwd,
+            "plain_backward_on_card": len(plain_bwd)}
 
 
 # ---------------------------------------------------------------------------
@@ -2747,20 +2938,22 @@ def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict
     want = unsharded["losses"][:MESH_TRAIN_STEPS]
     rel = max(abs(a - w) / abs(w) for a, w in zip(losses, want))
     expected = cfg.n_layers * 2 * mb * MESH_TRAIN_STEPS
+    expected_bwd = cfg.n_layers * mb * MESH_TRAIN_STEPS
     median = statistics.median(ms[1:])
     res = {"arch": cfg.name, "batch": b, "seq": s, "microbatches": mb, "steps": MESH_TRAIN_STEPS,
            "losses": losses, "unsharded_losses": want, "max_rel": rel, "bitwise": losses == want,
            "step_ms": ms, "median_step_ms": median,
            "unsharded_median_step_ms": unsharded["median_step_ms"],
            "flash_launches": launches["flash_attention"], "flash_expected": expected,
-           "designs": designs, "quantize": quant, "card": card}
+           "designs": designs, "backward_launches": launches["flash_attention_bwd"],
+           "backward_expected": expected_bwd, "quantize": quant, "card": card}
     print(f"[mesh] {cfg.name} full size on the (1, 1) mesh, params and optimizer state DTensors "
           f"by param_specs, batch {b} x {s} by make_global_batch, {mb} microbatches, remat: "
           f"losses {', '.join(f'{x:.6f}' for x in losses)} vs phase 10's "
           f"{', '.join(f'{x:.6f}' for x in want)}: max rel {rel:.2e} (tol {MESH_LOSS_TOL:g}), "
           f"bitwise {res['bitwise']}; flash launches through local_map "
-          f"{launches['flash_attention']} {designs} (the unsharded route's count {expected})",
-          flush=True)
+          f"{launches['flash_attention']} {designs} (the unsharded route's count {expected}), "
+          f"backward {launches['flash_attention_bwd']} (expected {expected_bwd})", flush=True)
     print(f"[mesh] median step {median:.1f} ms (steps 1-{MESH_TRAIN_STEPS - 1}) vs phase 10's "
           f"unsharded {unsharded['median_step_ms']:.1f} ms: the difference is DTensor dispatch "
           f"on the host, on {card}", flush=True)
@@ -2768,6 +2961,8 @@ def mesh_train(torch, mesh, seed: int, kernels: dict, card: str, unsharded: dict
     check(rel <= MESH_LOSS_TOL, "mesh: the mesh route's losses differ from phase 10's")
     check(launches["flash_attention"] == expected and designs["wgmma"] == expected,
           f"mesh: {designs} flash launches, expected {expected} wgmma")
+    check(launches["flash_attention_bwd"] == expected_bwd,
+          f"mesh: {launches['flash_attention_bwd']} backward launches, expected {expected_bwd}")
     return res
 
 
@@ -2904,12 +3099,14 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
     import torch.distributed as dist
 
     mesh = start_mesh(torch)
+    plain_bwd = []
     try:
         print(f"[mesh] process group: {dist.get_backend()} world {dist.get_world_size()}, "
               f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on {card}", flush=True)
-        train = mesh_train(torch, mesh, seed, kernels, card, unsharded_train)
-        decode = mesh_decode(torch, mesh, seed, kernels, card)
-        ssm = mesh_ssm_train(torch, mesh, seed, card)
+        with plain_backward_on_card(plain_bwd):
+            train = mesh_train(torch, mesh, seed, kernels, card, unsharded_train)
+            decode = mesh_decode(torch, mesh, seed, kernels, card)
+            ssm = mesh_ssm_train(torch, mesh, seed, card)
         arch, n_req = MESH_SERVE
         cfg, params = load_model(torch, arch, seed, tag="[mesh]")
         serve = phase_serve(torch, cfg, params, seed, kernels, card, n_req,
@@ -2921,11 +3118,16 @@ def phase_mesh(torch, seed: int, kernels: dict, card: str, unsharded_train: dict
     print(f"[mesh] {arch} decode, mesh route: median step {serve['median_step_ms']:.2f} ms vs "
           f"phase 8's unsharded {unsharded_serve['median_step_ms']:.2f} ms; paged launches "
           f"{serve['launches']['paged_attention']} through local_map on {card}", flush=True)
+    print(f"[mesh] ref.flash_attention_bwd on a CUDA tensor in the mesh train steps: "
+          f"{len(plain_bwd)} calls", flush=True)
+    check(not plain_bwd, f"mesh: the plain backward ran on the card: {plain_bwd[:4]}")
     # flash through local_map: the train steps' and the dense decode's prefill (the
     # engine's prefill is unsharded)
     return {"train": train, "decode": decode, "ssm_train": ssm, "serve": serve, "launches": {
         "flash_attention": train["flash_launches"] + decode["launches"]["flash_attention"],
-        "paged_attention": serve["launches"]["paged_attention"]}}
+        "flash_attention_bwd": train["backward_launches"],
+        "paged_attention": serve["launches"]["paged_attention"]},
+        "plain_backward_on_card": len(plain_bwd)}
 
 
 # ---------------------------------------------------------------------------
@@ -3012,7 +3214,8 @@ def registration_host_us(torch, card: str) -> dict:
     """Host µs per call the operator registration adds: ``wrapper_host_us``
     of the paged (serve shape) and flash (qwen3-8b heads, S 512, bf16)
     wrappers called directly, and through their public entries (``ops.*``,
-    the ``repro_torch`` operators; flash also through ``FlashAttention``),
+    the ``repro_torch`` operators; flash also through ``ops.flash_attention``,
+    which without a gradient to record calls the operator alone),
     in turns (direct, operator, operator, direct)."""
     from repro_torch.kernels import flash_attention as flash_mod
     from repro_torch.kernels import ops
@@ -3041,7 +3244,7 @@ def registration_host_us(torch, card: str) -> dict:
               f"{t['direct_us'][0]:.2f} / {t['direct_us'][1]:.2f} us, through the repro_torch "
               f"operator {t['operator_us'][0]:.2f} / {t['operator_us'][1]:.2f} us: the "
               f"registration adds {t['added_us']:.2f} us"
-              + (f" (ops.flash_attention, with FlashAttention: {t['function_us']:.2f} us)"
+              + (f" (ops.flash_attention, no gradient recorded: {t['function_us']:.2f} us)"
                  if name == "flash" else "") + f" on {card}", flush=True)
     del q, kp, vp, fq, fk, fv
     free_memory(torch)
@@ -3258,8 +3461,8 @@ def ptxas_report(log: str) -> dict:
 
 def build_all(torch, modules: dict) -> dict:
     """Build every kernel library at once, one nvcc each; print each one's
-    time and its registers and spills. Fails if the wgmma flash kernel
-    spills."""
+    time and its registers and spills. Fails if the wgmma flash kernel, a
+    set-design flush kernel or any attention backward kernel spills."""
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import _build
 
@@ -3288,7 +3491,15 @@ def build_all(torch, modules: dict) -> dict:
           f"nvcc report, not {2 * FLUSH_SET_MAX} (set sizes 1-16, aligned or not)")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
               for r in sets.values()), "build: a set-design flush kernel spills registers")
-    return {"seconds": seconds, "wgmma_ptxas": wgmma, "flush_ptxas": flush}
+    bwd = {f: r for f, r in ptxas_report(_build.build_logs.get("flash_attention_bwd", "")).items()
+           if "_kernel" in f}
+    print(f"[build] attention backward kernels: {bwd}", flush=True)
+    # dot x 2 dtypes; mma dkv and dq x 3 head dims; simt dkv and dq x 7 (dtype, head dim)
+    check(len(bwd) == 2 + 2 * 3 + 2 * 7, f"build: {len(bwd)} attention backward kernels in "
+          "the nvcc report, not 22")
+    check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
+              for r in bwd.values()), "build: an attention backward kernel spills registers")
+    return {"seconds": seconds, "wgmma_ptxas": wgmma, "flush_ptxas": flush, "backward_ptxas": bwd}
 
 
 def main() -> int:
@@ -3332,6 +3543,10 @@ def main() -> int:
     kernels = {"paged_attention": paged_mod.paged_attention,
                "flash_attention": flash_mod.flash_attention,
                "flush_scores": flush_mod.flush_scores}
+    if probe_src is None:     # an earlier package under SRC may have no backward kernel
+        from repro_torch.kernels import flash_attention_bwd as flash_bwd_mod
+
+        kernels["flash_attention_bwd"] = flash_bwd_mod.flash_attention_bwd
     if probe_src:
         probe = (decode_probe if args.decode_probe else flush_probe if args.flush_probe
                  else backward_probe if args.backward_probe
@@ -3346,10 +3561,12 @@ def main() -> int:
     try:
         # 2. build
         build = timed("build", build_all, torch, {
-            "paged_attention": paged_mod, "flash_attention": flash_mod, "flush_score": flush_mod})
+            "paged_attention": paged_mod, "flash_attention": flash_mod, "flush_score": flush_mod,
+            "flash_attention_bwd": flash_bwd_mod})
         # 3. kernels
         paged = timed("kernels: paged", phase_kernels, torch, args.seed, card)
         flash = timed("kernels: flash", phase_flash, torch, args.seed, card)
+        flash_bwd = timed("kernels: flash backward", phase_flash_bwd, torch, args.seed, card)
         flush = timed("kernels: flush", phase_flush, torch, args.seed, card)
         # 4-8. the paths
         exact = timed("exact", phase_exact, torch, args.seed, kernels)
@@ -3431,6 +3648,24 @@ def main() -> int:
          "mesh_phase_launches": mesh["launches"]["flash_attention"],
          "tooling_phase_launches": tooling["launches"]["flash_attention"],
          "registration_host_us": tooling["registration_host_us"]["flash"]},
+        {**common, "name": "flash_attention_bwd",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:109",
+         "replaces_note": "no TPU kernel: JAX's gradient is XLA's autodiff of _dense_attention",
+         "launches": train["full"]["launches"]["flash_attention_bwd"],
+         "launches_by_design": train["full"]["backward_designs"],
+         "max_abs_err": max(flash_bwd["max_err_fp32"], flash_bwd["max_err_bf16"]),
+         **{k: train["attention_backward"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "function_ms",
+             "autograd_plain_ms", "shape", "flops")},
+         "cases": flash_bwd["cases"], "max_err_fp32": flash_bwd["max_err_fp32"],
+         "max_err_bf16": flash_bwd["max_err_bf16"],
+         "max_rel_l2_fp32": flash_bwd["max_rel_l2_fp32"],
+         "max_rel_l2_bf16": flash_bwd["max_rel_l2_bf16"],
+         "train_phase_launches": train["backward_launches"],
+         "mesh_phase_launches": mesh["launches"]["flash_attention_bwd"],
+         "plain_backward_on_card": train["plain_backward_on_card"]
+         + mesh["plain_backward_on_card"]},
         {**common, "name": "flush_scores",
          "source": "src/repro_torch/kernels/csrc/flush_score.cu",
          "replaces": "src/repro/kernels/flush_score.py:50",
@@ -3445,7 +3680,8 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build": build, "kernels": line["kernels"], "serve": serve,
+        {"card": card, "build": build, "kernels": line["kernels"], "flash_bwd": flash_bwd,
+         "serve": serve,
          "prefill": prefill, "families": families, "encdec_vision": encdec,
          "sa_cache": sa, "exact_launches": exact, "exact_families_launches": exact_families,
          "train": train, "mesh": mesh, "tooling": tooling, "trace": trace,

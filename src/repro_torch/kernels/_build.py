@@ -9,8 +9,9 @@ reuses the library; nvcc's report (registers, spills) is kept beside it.
 A file lock keeps concurrent builds apart.
 
 Nothing here runs at import: the first call of a kernel on a CUDA tensor
-builds it. A failed build raises. ``bind``, ``check_tensors`` and
-``raise_on_error`` are what the kernels' wrappers share.
+builds it. A failed build raises. ``bind``, ``check_tensors``,
+``raise_on_error`` and ``kernel_constants`` are what the kernels' wrappers
+share.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -111,3 +113,11 @@ def check_tensors(name: str, align: int = 1, **tensors: torch.Tensor) -> None:
             raise ValueError(f"{name} kernel: {what} is not contiguous")
         if t.data_ptr() % align:
             raise ValueError(f"{name} kernel: {what} is not {align}-byte aligned")
+
+
+def kernel_constants(name: str, *names: str) -> tuple[int, ...]:
+    """Integers of ``csrc/<name>.cu``'s ``constexpr int`` lines, so Python
+    that plans or mirrors a kernel reads the kernel's own geometry (nothing
+    builds)."""
+    src = (CSRC / f"{name}.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names)

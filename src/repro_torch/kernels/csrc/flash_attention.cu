@@ -16,6 +16,14 @@
 // window (window > 0); masked p is 0; out = acc / max(l, 1e-30), so a row
 // with no valid key is 0.
 //
+// For training the entry point also writes, when given a pointer, each
+// row's log-sum-exp of its valid scores, lse = m + log(l), in f32 and in
+// the natural base (the wgmma design converts from its log2 domain), laid
+// out (B, H, Sq): the backward kernel (flash_attention_bwd.cu) reads it and
+// forms p = exp(s - lse) without a second softmax pass. A row with no
+// valid key gets +inf, so exp(s - lse) is 0 there, never NaN. Serving
+// passes a null pointer and the epilogues store nothing more.
+//
 // What bounds it on this card: operations. Prefill of qwen3-8b at S 4096
 // (H 32, hd 128, causal) needs 1.375e11 FLOP for q.k and p.v, 0.139 ms at
 // the tensor cores' 989 TFLOP/s in bf16; it reads ~21 MB, 6 us at 3.35 TB/s.
@@ -76,6 +84,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -148,9 +157,9 @@ __device__ __forceinline__ void stage_transposed(float* __restrict__ dst, const 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv, int H,
-                       int KV, int causal, int window, float softcap, int q_offset,
-                       float sm_scale) {
+                       const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                       int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
+                       int q_offset, float sm_scale) {
   constexpr int DPT = dpt<HD>();
   constexpr int HDP = hd_pad<HD>();
   constexpr int PLD = kBQ + kPad;
@@ -305,13 +314,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = tx * DPT + j;
       if (c < HD) ob[r * q_stride + c] = from_f32<T>(acc[i][j] * inv);
     }
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * Sq + q0 + r] = l[i] > 0.f ? m[i] + logf(l[i]) : INFINITY;
   }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int KV, int causal, int window, float softcap, int q_offset, float sm_scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int KV, int causal, int window, float softcap, int q_offset,
+           float sm_scale, cudaStream_t stream) {
   static bool configured = false;  // the opt-in above 48 KB, once per instantiation
   const size_t smem = smem_bytes<HD>();
   if (!configured) {
@@ -324,7 +335,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Sq, Skv, H, KV, causal, window, softcap, q_offset, sm_scale);
+      static_cast<T*>(out), lse, Sq, Skv, H, KV, causal, window, softcap, q_offset, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -522,8 +533,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map, __nv_bfloat16* __restrict__ out,
-                   int Sq, int Skv, int H, int KV, int hd, int causal, int window,
-                   float softcap, int q_offset, float sm_scale, int n_qtiles) {
+                   float* __restrict__ lse, int Sq, int Skv, int H, int KV, int hd, int causal,
+                   int window, float softcap, int q_offset, float sm_scale, int n_qtiles) {
   constexpr int kCB = HDP / 64;               // 64-column blocks of a row
   constexpr uint32_t kQ = q_bytes(HDP);
   constexpr uint32_t kKV = kv_bytes(HDP);
@@ -740,6 +751,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       *reinterpret_cast<__nv_bfloat162*>(o1 + col) =
           __floats2bfloat162_rn(o[4 * jj + 2] * inv1, o[4 * jj + 3] * inv1);
   }
+  // the log-sum-exp from the log2 domain: (m + log2 l) ln 2; +inf for a row
+  // with no valid key (l 0, m -inf)
+  if (lse != nullptr && t4 == 0) {
+    constexpr float kLn2 = 0.6931471805599453f;
+    float* lr = lse + ((int64_t)b * H + h) * Sq;
+    if (row0 < Sq) lr[row0] = l0 > 0.f ? (m0 + log2f(l0)) * kLn2 : INFINITY;
+    if (row0 + 8 < Sq) lr[row0 + 8] = l1 > 0.f ? (m1 + log2f(l1)) * kLn2 : INFINITY;
+  }
 }
 
 // cuTensorMapEncodeTiled through the runtime, so the library needs no -lcuda.
@@ -785,12 +804,25 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int hd,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A row with no valid key: +inf (0x7f800000) in every float of lse.
+__global__ void fill_inf_kernel(float* __restrict__ x, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) x[i] = INFINITY;
+}
+
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq, int Skv,
-           int H, int KV, int hd, int causal, int window, float softcap, int q_offset,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int B, int Sq,
+           int Skv, int H, int KV, int hd, int causal, int window, float softcap, int q_offset,
            float sm_scale, cudaStream_t stream) {
-  if (Skv == 0)  // no key at all: every row is 0 (a tensor map needs a non-empty tensor)
+  if (Skv == 0) {  // no key at all: every row is 0 (a tensor map needs a non-empty tensor)
+    if (lse != nullptr) {
+      const int64_t n = (int64_t)B * H * Sq;
+      fill_inf_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(lse, n);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
     return (int)cudaMemsetAsync(out, 0, (size_t)B * Sq * H * hd * 2, stream);
+  }
   static bool configured = false;  // the opt-in above 48 KB, once per instantiation
   const size_t smem = smem_bytes(HDP);
   if (!configured) {
@@ -807,19 +839,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
   const int n_qtiles = (Sq + kBQ - 1) / kBQ;
   if ((int64_t)n_qtiles * H * B >= (1ll << 31)) return (int)cudaErrorInvalidConfiguration;
   flash_wgmma_kernel<HDP><<<n_qtiles * H * B, kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KV, hd, causal, window,
-      softcap, q_offset, sm_scale, n_qtiles);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, KV, hd, causal,
+      window, softcap, q_offset, sm_scale, n_qtiles);
   return (int)cudaGetLastError();
 }
 
 }  // namespace wg
 
-int launch_simt(int dtype, int hd, const void* q, const void* k, const void* v, void* out, int B,
-                int Sq, int Skv, int H, int KV, int causal, int window, float softcap,
-                int q_offset, float sm_scale, cudaStream_t s) {
+int launch_simt(int dtype, int hd, const void* q, const void* k, const void* v, void* out,
+                float* lse, int B, int Sq, int Skv, int H, int KV, int causal, int window,
+                float softcap, int q_offset, float sm_scale, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-#define REPRO_SIMT(T, HD)                                                                   \
-  simt::launch<T, HD>(q, k, v, out, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, \
+#define REPRO_SIMT(T, HD)                                                                        \
+  simt::launch<T, HD>(q, k, v, out, lse, B, Sq, Skv, H, KV, causal, window, softcap, q_offset, \
                       sm_scale, s)
   if (dtype == 0) {
     switch (hd) {
@@ -848,22 +880,24 @@ int repro_flash_attention_design(int dtype, int hd) {
   return dtype == 1 && (hd == 64 || hd == 120 || hd == 128) ? 1 : 0;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 on success);
-// the caller has checked shapes, types, devices, contiguity and alignment.
+// dtype: 0 = float32, 1 = bfloat16. lse: null, or (B, H, Sq) f32 for each
+// row's log-sum-exp. Returns a cudaError_t (0 on success); the caller has
+// checked shapes, types, devices, contiguity and alignment.
 int repro_flash_attention(int dtype, const void* q, const void* k, const void* v, void* out,
-                          int B, int Sq, int Skv, int H, int KV, int hd, int causal, int window,
-                          float softcap, int q_offset, float sm_scale, void* stream) {
+                          void* lse, int B, int Sq, int Skv, int H, int KV, int hd, int causal,
+                          int window, float softcap, int q_offset, float sm_scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (KV <= 0 || H % KV != 0 || Skv < 0 || q_offset < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (repro_flash_attention_design(dtype, hd)) {
     const int hdp = hd <= 64 ? 64 : 128;
-    return hdp == 64 ? wg::launch<64>(q, k, v, out, B, Sq, Skv, H, KV, hd, causal, window,
+    return hdp == 64 ? wg::launch<64>(q, k, v, out, l, B, Sq, Skv, H, KV, hd, causal, window,
                                       softcap, q_offset, sm_scale, s)
-                     : wg::launch<128>(q, k, v, out, B, Sq, Skv, H, KV, hd, causal, window,
+                     : wg::launch<128>(q, k, v, out, l, B, Sq, Skv, H, KV, hd, causal, window,
                                        softcap, q_offset, sm_scale, s);
   }
-  return launch_simt(dtype, hd, q, k, v, out, B, Sq, Skv, H, KV, causal, window, softcap,
+  return launch_simt(dtype, hd, q, k, v, out, l, B, Sq, Skv, H, KV, causal, window, softcap,
                      q_offset, sm_scale, s);
 }
 

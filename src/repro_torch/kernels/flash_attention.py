@@ -8,9 +8,15 @@ plain version is ``ref.flash_attention_ref``, which ``ops`` dispatches to
 for CPU tensors. This wrapper takes CUDA tensors only: it launches a kernel
 or raises.
 
-``flash_attention.launches`` counts the launches of this process, and
-``flash_attention.launches_by_design`` splits them by design, so a run can
-show that its main path went through the kernel it expects.
+``flash_attention_lse`` launches the same kernel and also returns each
+row's log-sum-exp, (B, H, Sq) f32, which the training path saves for the
+backward kernel (``flash_attention_bwd``); serving calls ``flash_attention``,
+which stores none.
+
+``flash_attention.launches`` counts the launches of this process (through
+either entry), and ``flash_attention.launches_by_design`` splits them by
+design, so a run can show that its main path went through the kernel it
+expects.
 
 ``cost`` is the work a call needs (``pairs`` of query and key the masks
 leave valid): the bound of ``chip_smoke.py`` and the count of
@@ -36,7 +42,7 @@ def _kernel():
     global _fn, _design_fn
     if _fn is None:
         _fn = _build.bind("flash_attention", "repro_flash_attention",
-                          [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+                          [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
                           + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         _design_fn = _build.bind("flash_attention", "repro_flash_attention_design",
                                  [ctypes.c_int, ctypes.c_int])
@@ -91,11 +97,7 @@ def _check(q, k, v, window, q_offset):
         raise ValueError("flash_attention kernel: positions past int32")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    softcap: float = 0.0, q_offset: int = 0):
-    """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype.
-
-    Query row i sits at position i + q_offset; keys at 0 .. Skv-1."""
+def _launch(q, k, v, causal, window, softcap, q_offset, lse):
     _check(q, k, v, window, q_offset)
     fn = _kernel()
     b, sq, h, hd = q.shape
@@ -107,12 +109,31 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                          "multiple of 16 bytes")
     out = torch.empty_like(q)
     err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             b, sq, skv, h, kvh, hd, int(causal), int(window), float(softcap),
-             int(q_offset), hd ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+             None if lse is None else lse.data_ptr(), b, sq, skv, h, kvh, hd, int(causal),
+             int(window), float(softcap), int(q_offset), hd ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on_error("flash_attention", err)
     flash_attention.launches += 1
     flash_attention.launches_by_design[kind] += 1
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0, q_offset: int = 0):
+    """q: (B, Sq, H, hd); k/v: (B, Skv, KV, hd) -> (B, Sq, H, hd) in q's dtype.
+
+    Query row i sits at position i + q_offset; keys at 0 .. Skv-1."""
+    return _launch(q, k, v, causal, window, softcap, q_offset, None)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0, q_offset: int = 0):
+    """``flash_attention``'s output and each row's log-sum-exp of its valid
+    scores, (B, H, Sq) f32 in the natural base, +inf for a row with no valid
+    key: what the backward kernel reads."""
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, causal, window, softcap, q_offset, lse), lse
 
 
 flash_attention.launches = 0

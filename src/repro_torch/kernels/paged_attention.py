@@ -26,7 +26,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import re
 
 import torch
 
@@ -36,16 +35,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 120, 128)
 
 
-def _kernel_constants(*names: str) -> tuple[int, ...]:
-    """The kernel's geometry, read from the ``constexpr int`` lines of its
-    source, so the plan and the kernel cannot drift apart (nothing builds)."""
-    src = (_build.CSRC / "paged_attention.cu").read_text()
-    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1)) for n in names)
-
-
-# keys per tile, q heads per block, table entries a block keeps in shared memory
-TILE_KEYS, MAX_GROUP, MAX_SPLIT_PAGES = _kernel_constants("kTile", "kMaxGroup",
-                                                          "kMaxSplitPages")
+# keys per tile, q heads per block, table entries a block keeps in shared
+# memory: the kernel's geometry, read from its source, so the plan and the
+# kernel cannot drift apart
+TILE_KEYS, MAX_GROUP, MAX_SPLIT_PAGES = _build.kernel_constants(
+    "paged_attention", "kTile", "kMaxGroup", "kMaxSplitPages")
 BLOCKS_PER_SM = 2        # the plan's target of blocks per SM when the table is long
 _fn = None
 

@@ -10,15 +10,12 @@ import torch
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
-    """Materialized-softmax attention. q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd).
-
-    f32 math, output in q's dtype; a row with no valid key gives 0, as the
-    Hopper kernel, the JAX Pallas kernel and the JAX ``ref`` do."""
+def _masked_scores(q, k, causal, window, softcap, q_offset):
+    """Scaled (and capped) scores (B, KV, rep, Sq, Skv) in f32, -1e30 where
+    the masks drop a key, and the (Sq, Skv) mask."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    rep = h // kvh
-    qf = (q.float() * hd ** -0.5).reshape(b, sq, kvh, rep, hd)
+    qf = (q.float() * hd ** -0.5).reshape(b, sq, kvh, h // kvh, hd)
     s = torch.einsum("bqgrd,bkgd->bgrqk", qf, k.float())
     if softcap:
         s = softcap * torch.tanh(s / softcap)
@@ -29,11 +26,36 @@ def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset
         mask &= kpos <= qpos
     if window:
         mask &= kpos > qpos - window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def _softmax_v(s, mask, q, v):
+    """softmax(s) v in q's layout and dtype; a row with no valid key gives 0."""
+    b, sq, h, hd = q.shape
     p = torch.softmax(s, dim=-1)
     p = torch.where(mask.any(dim=-1)[:, None], p, torch.zeros_like(p))
     o = torch.einsum("bgrqk,bkgd->bqgrd", p, v.float())
     return o.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+    """Materialized-softmax attention. q: (B,Sq,H,hd); k/v: (B,Skv,KV,hd).
+
+    f32 math, output in q's dtype; a row with no valid key gives 0, as the
+    Hopper kernel, the JAX Pallas kernel and the JAX ``ref`` do."""
+    s, mask = _masked_scores(q, k, causal, window, softcap, q_offset)
+    return _softmax_v(s, mask, q, v)
+
+
+def flash_attention_lse(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0):
+    """``flash_attention_ref``'s output and each row's log-sum-exp of its
+    valid scores, (B, H, Sq) f32, +inf for a row with no valid key (the
+    Hopper forward kernel's second output, which its backward reads)."""
+    b, sq, h, _ = q.shape
+    s, mask = _masked_scores(q, k, causal, window, softcap, q_offset)
+    lse = torch.logsumexp(s, dim=-1).reshape(b, h, sq)
+    lse = torch.where(mask.any(dim=-1), lse, torch.full_like(lse, float("inf")))
+    return _softmax_v(s, mask, q, v), lse
 
 
 def flash_attention_bwd(q, k, v, out, do, *, causal=True, window=0, softcap=0.0,

@@ -11,7 +11,8 @@ computed; run it on real tensors and it runs as usual. The totals:
     ``convolution`` only: ``mm``, ``addmm``, ``bmm``, ``baddbmm``, the
     convolutions and PyTorch's fused attention where they run, by
     ``torch.utils.flop_counter``'s formulas; each kernel operator by its
-    ``cost`` formula (``kernels/flash_attention.py``,
+    ``cost`` formula (``kernels/flash_attention.py``, whose formula also
+    charges ``flash_attention_lse``, ``flash_attention_bwd.py``,
     ``paged_attention.py``, ``flush_score.py``). Elementwise work is left
     out, as in JAX.
   * ``memory_bytes``: a proxy for device-memory traffic at the granularity
@@ -72,7 +73,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
-from repro_torch.kernels import flash_attention, flush_score, paged_attention
+from repro_torch.kernels import (flash_attention, flash_attention_bwd, flush_score,
+                                  paged_attention)
 
 COLLECTIVES = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all",
                "collective-permute")
@@ -143,10 +145,14 @@ def kernel_cost(func, args) -> dict | None:
     if func.namespace != "repro_torch":
         return None
     name = func.__name__.split(".")[0]
-    if name == "flash_attention":
+    if name in ("flash_attention", "flash_attention_lse"):
         q, k, _, causal, window, _, q_offset = args
         return flash_attention.cost(tuple(q.shape), tuple(k.shape), q.element_size(),
                                     causal=causal, window=window, q_offset=q_offset)
+    if name == "flash_attention_backward":
+        q, k, *_, causal, window, _, q_offset = args
+        return flash_attention_bwd.cost(tuple(q.shape), tuple(k.shape), q.element_size(),
+                                        causal=causal, window=window, q_offset=q_offset)
     if name == "paged_attention":
         q, pages, _, table, lengths, _ = args
         lens = None if isinstance(lengths, FakeTensor) else lengths.tolist()

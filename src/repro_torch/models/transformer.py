@@ -372,14 +372,15 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 _DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default, torch.ops.aten.bmm.default,
-         torch.ops.repro_torch.flash_attention.default}
+         torch.ops.repro_torch.flash_attention_lse.default}
 
 
 def dots_saveable():
     """The selective checkpoint of ``forward(remat="dots")``, JAX's
     ``jax.checkpoint_policies.dots_saveable``: the outputs of ``mm``,
     ``addmm`` and ``bmm`` (every projection, and the plain attention's two
-    products, ``dot_general``s in JAX) and of the flash operator are saved,
+    products, ``dot_general``s in JAX) and of the flash operator (its
+    output and log-sum-exps, ``flash_attention_lse``) are saved,
     everything else is recomputed in the backward pass."""
     return create_selective_checkpoint_contexts(_save_dots)
 

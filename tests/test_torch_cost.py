@@ -37,7 +37,8 @@ formulas.
     real loop) the train steps are equal exactly.
 * The card's route: with the flash kernel as an operator, the count is
   the CPU route's, minus the plain attention's matmuls, plus the flash
-  formula. This CPU build of PyTorch cannot index a fake CUDA tensor from
+  formula; a train step's attention backward is one backward kernel
+  operator a layer and microbatch, charged by its formula. This CPU build of PyTorch cannot index a fake CUDA tensor from
   Python (``tensor[i]`` asks for a CUDA device guard), so the model runs on
   fake CPU tensors that answer ``is_cuda`` True: ``layers._attend`` then
   takes its card branch, the operator, unchanged.
@@ -62,7 +63,8 @@ from repro.models import transformer as JT
 from repro.optim import adamw_init as jax_adamw_init
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import ShapeConfig
-from repro_torch.kernels import flash_attention, flush_score, ops, paged_attention
+from repro_torch.kernels import (flash_attention, flash_attention_bwd, flush_score, ops,
+                                  paged_attention)
 from repro_torch.launch import cost
 from repro_torch.launch import specs as S
 from repro_torch.launch import steps as Steps
@@ -436,3 +438,33 @@ def test_rank_counts_half_the_attention_at_model_2(kv_heads):
         dist.destroy_process_group()
     assert alone == 2 * 2 * (2 * 4 * 64 * 64 * 16) * 2      # 2 products, 2 layers
     assert rank * 2 == alone
+
+
+def test_card_route_train_step_charges_the_backward_kernel(monkeypatch):
+    """A train step of reduced tinyllama (B 4, S 64, remat, 2 microbatches)
+    on the card's route (fake tensors answering ``is_cuda``): the attention
+    backward is one ``flash_attention_backward`` call for each layer and
+    microbatch, each charged once by ``flash_attention_bwd.cost`` (no ATen
+    operator of the plain version is counted), the forward
+    ``flash_attention_lse`` twice (the block and its recompute), and the
+    step runs to its end."""
+    monkeypatch.setattr(FakeTensor, "is_cuda", property(lambda self: True), raising=False)
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    b, s, mb = 4, 64, 2
+    fm = FakeTensorMode()
+    params = S.params_specs(cfg, "cpu", fm)
+    with fm:
+        args = (params, adamw_init(params),
+                S.train_batch_specs(cfg, ShapeConfig("t", s, b, "train"), "cpu", fm))
+        step = Steps.make_train_step(cfg, None, remat=True, microbatches=mb)
+        res = cost.analyze(step, *args, breakdown=True)
+    n = cfg.n_layers * mb
+    assert res["kernel_calls"] == {"flash_attention_lse": 2 * n, "flash_attention_backward": n}
+    itemsize = params["embed"].element_size()
+    per = flash_attention_bwd.cost((b // mb, s, cfg.n_heads, cfg.head_dim),
+                                   (b // mb, s, cfg.n_kv_heads, cfg.head_dim), itemsize)
+    assert res["by_op"]["repro_torch.flash_attention_backward"] == (n * per["flops"],
+                                                                     n * per["bytes"], 0)
+    assert not [p for p in res["by_path"] if "ref.flash_attention_bwd" in p]
+    new_params, _, metrics = res["result"]
+    assert set(metrics) >= {"ce", "grad_norm"} and new_params["embed"].shape == params["embed"].shape

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import sa_cache
 from repro_torch.kernels import flash_attention as cuda_flash
+from repro_torch.kernels import flash_attention_bwd as cuda_flash_bwd
 from repro_torch.kernels import flush_score as cuda_flush
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as cuda_paged
@@ -490,6 +491,10 @@ GRAD_CASES = [
     (2, 64, 192, 4, 1, 128, False, 0, 0.0, 0),      # Sq != Skv, group 4
     (2, 4, 1500, 6, 6, 64, False, 0, 0.0, 0),       # whisper-tiny cross-attention
     (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197),    # rows 6.. have no valid key
+    # chip_smoke.py's grid for the backward kernel, at every head dim
+    *[(b, sq, skv, h, kv, hd, causal, window, cap, q_offset)
+      for b, sq, skv, h, kv, causal, window, cap, q_offset in chip_smoke.FLASH_BWD_CASES
+      for hd in chip_smoke.FLASH_BWD_HEAD_DIMS],
 ]
 GRAD_REL_L2 = {"float32": 2e-5, "bfloat16": 1e-2}
 
@@ -501,20 +506,30 @@ def _rel_l2(got, want) -> float:
 @pytest.mark.parametrize("case", GRAD_CASES)
 @pytest.mark.parametrize("dtype", list(GRAD_REL_L2))
 def test_flash_function_forward_backward_on_card(card, case, dtype):
-    """``ops.flash_attention`` under autograd on the card: one kernel launch
-    forward, held to the plain version; dq, dk, dv (``ref.flash_attention_bwd``)
-    equal autograd through the plain version on the same inputs (relative L2
-    fp32 2e-5, bf16 1e-2); a row with no valid key gets zero gradient."""
+    """``ops.flash_attention`` under autograd on the card: one forward kernel
+    launch, held to the plain version, and one backward kernel launch
+    (``flash_attention_bwd``), each of the design the input takes; dq, dk,
+    dv equal autograd through the plain version on the same inputs
+    (relative L2 fp32 2e-5, bf16 1e-2); a row with no valid key gets zero
+    gradient."""
     causal, window, cap, q_offset = case[6:]
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
     dt = getattr(torch, dtype)
+    hd = case[5]
     q, k, v = (x.requires_grad_() for x in _flash_inputs(case, dt, seed=GRAD_CASES.index(case)))
     do = torch.randn(q.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(1)).to(dt)
-    before = cuda_flash.flash_attention.launches
+    mma = dt == torch.bfloat16 and hd in chip_smoke.WGMMA_HEAD_DIMS
+    fwd_kind, bwd_kind = ("wgmma", "mma") if mma else ("simt", "simt")
+    before = dict(cuda_flash.flash_attention.launches_by_design)
+    bwd_before = dict(cuda_flash_bwd.flash_attention_bwd.launches_by_design)
     out = ops.flash_attention(q, k, v, **kw)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert cuda_flash.flash_attention.launches == before + 1
+    made = {n: c - before[n] for n, c in cuda_flash.flash_attention.launches_by_design.items()}
+    bwd_made = {n: c - bwd_before[n]
+                for n, c in cuda_flash_bwd.flash_attention_bwd.launches_by_design.items()}
+    assert made == {"wgmma": 0, "simt": 0, fwd_kind: 1}
+    assert bwd_made == {"mma": 0, "simt": 0, bwd_kind: 1}
     want_out = ref.flash_attention_ref(q, k, v, **kw)
     wants = torch.autograd.grad(want_out, (q, k, v), do)
     tol = FLASH_TOLS[dtype]

@@ -36,7 +36,7 @@ def test_kernel_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
         "import sys, torch\n"
         "import repro_torch.kernels.ops as ops\n"
         "from repro_torch.kernels import _build, flash_attention as fa, flush_score as fs\n"
-        "from repro_torch.kernels import paged_attention as pa\n"
+        "from repro_torch.kernels import flash_attention_bwd as fb, paged_attention as pa\n"
         "import repro_torch.core.sa_cache, repro_torch.launch.quickstart\n"
         "import repro_torch.serving.fleet, repro_torch.serving.trace_shim\n"
         "q = torch.zeros(1, 2, 16); kp = torch.zeros(2, 4, 1, 16)\n"
@@ -47,8 +47,9 @@ def test_kernel_modules_import_and_run_on_cpu_without_nvcc(tmp_path):
         "hits = torch.zeros(3, 12, dtype=torch.int32)\n"
         "assert ops.flush_scores(hits, hits[:, 0], hits == 0).shape == (3, 12)\n"
         "assert not _build._loaded and pa._fn is None and pa.paged_attention.launches == 0\n"
-        "assert fa._fn is None and fs._fn is None\n"
+        "assert fa._fn is None and fs._fn is None and fb._fn is None\n"
         "assert fa.flash_attention.launches == fs.flush_scores.launches == 0\n"
+        "assert fb.flash_attention_bwd.launches == 0\n"
         "assert 'jax' not in sys.modules and 'repro' not in sys.modules\n"
         "try:\n"
         "    _build.nvcc_path()\n"

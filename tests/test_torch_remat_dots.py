@@ -4,7 +4,8 @@ encoder-decoder), weights converted from the JAX init and inputs from numpy,
 its gradients equal ``remat=True``'s within 1e-5 relative L2 and JAX's
 ``remat="dots"`` gradients within the train tests' 1e-4; counted with
 ``launch/cost.py``'s mode, its backward recomputes no matrix product, where
-``remat=True`` recomputes each block's forward products once."""
+``remat=True`` recomputes each block's forward products once. And the
+gradient function takes ``remat="dots"`` at the train steps' batch shape."""
 import numpy as np
 import pytest
 
@@ -69,6 +70,22 @@ def test_dots_gradients_match_remat_and_jax(model):
     assert ce_dots == pytest.approx(float(jm["ce"]), rel=1e-5)
     for i, (a, b) in enumerate(zip(dots, jax.tree.leaves(jgrads))):
         assert _rel_l2(a, np.asarray(b)) <= 1e-4, (arch, i)
+
+
+def test_grad_fn_takes_remat_dots():
+    """``make_grad_fn`` takes ``remat="dots"`` (which it once refused) and
+    gives ``remat=True``'s gradient within 1e-5 relative L2: reduced
+    tinyllama, weights from the JAX init, a batch of 4 x 16 tokens without a
+    mask (the shape of ``tests/test_torch_train_steps.py``'s batches)."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    jparams = JT.init_params(jax.random.PRNGKey(0), jax_reduced(jax_get_config("tinyllama-1.1b")))
+    params = params_from_jax(jax.tree.map(np.asarray, jparams))
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, size=(4, 17)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]), "labels": torch.from_numpy(toks[:, 1:])}
+    dots, _ = _grads(cfg, params, batch, "dots")
+    full, _ = _grads(cfg, params, batch, True)
+    for a, b in zip(dots, full):
+        assert _rel_l2(a, b) <= 1e-5
 
 
 def _matmul_flops(cfg, params, batch, remat) -> tuple[int, int]:

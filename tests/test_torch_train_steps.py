@@ -97,20 +97,3 @@ def test_train_step_matches_jax(model):
                             jax.tree.leaves(jp)):
         assert _rel_l2((p - p0).numpy(), np.asarray(j) - np.asarray(j0)) <= 1e-3, \
             f"{arch}: a parameter update differs"
-
-
-def test_remat_dots_is_refused():
-    """The name is historical: ``remat="dots"`` was refused once and is
-    taken now. The gradient function takes it (JAX's ``dots_saveable`` as a
-    selective checkpoint) and gives ``remat=True``'s gradient within 1e-5
-    relative L2; ``tests/test_torch_remat_dots.py`` checks the same for
-    four families and holds it to JAX's."""
-    cfg = reduced(get_config("tinyllama-1.1b"))
-    params, _ = _port_state(JT.init_params(jax.random.PRNGKey(0),
-                                           jax_reduced(jax_get_config("tinyllama-1.1b"))))
-    batch = _torch_batch(_batches(cfg, 1)[0])
-    dots, _ = make_grad_fn(cfg, remat="dots")(params, batch)
-    full, _ = make_grad_fn(cfg, remat=True)(params, batch)
-    for a, b in zip(leaves(dots), leaves(full)):
-        assert _rel_l2(a.numpy(), b.numpy()) <= 1e-5
-
