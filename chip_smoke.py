@@ -39,10 +39,13 @@ last line:
               every head dim (16, 32, 64, 120, 128) in fp32 and bf16: causal,
               gemma2's window of 4,096 with softcap 50, ``q_offset``, a window
               narrower than a tile, Sq != Skv non-causal, rows with no valid
-              key (zero dq), GQA 1, 2, 4 and 8; dq, dk, dv held to
+              key (zero dq), GQA 1, 2, 4 and 8, the wgmma tiles' edges (Skv
+              ragged at 128 keys, Sq not a multiple of 64, GQA 8 with a
+              q_offset), after the wgmma kernels' registers and spills from
+              nvcc's report; dq, dk, dv held to
               ``ref.flash_attention_bwd`` (relative L2 fp32 2e-5, bf16 1e-2),
               the log-sum-exp to the plain one, each launched as the design
-              it expects (``mma`` for bf16 at 64/120/128, else ``simt``), two
+              it expects (``wgmma`` for bf16 at 64/120/128, else ``simt``), two
               runs bitwise equal; flush scores exactly equal on the kernel tests' grid,
               every set size of the set design (1-16) and the slot design's
               17, 64 and 256, blocks of 128 sets short, whole and past, views
@@ -116,16 +119,18 @@ last line:
               kernel, flash launches = attention calls x 2 (forward and the
               recompute) x microbatches, all simt, backward launches one an
               attention call and microbatch; tinyllama in bf16: 1e-2, 2e-2,
-              all wgmma and mma; ``remat="dots"`` (JAX's dots_saveable as a
+              all wgmma; ``remat="dots"`` (JAX's dots_saveable as a
               selective checkpoint) against remat=True for tinyllama at 2 fp32
               layers: every gradient leaf within 1e-5 relative L2, flash
               launched by the forward only; one attention call at tinyllama's training
               shape (4 x 2,048, bf16): the Function's output and dq, dk, dv
               held to the plain version's and its autograd's (2e-2, 1e-2
-              relative L2); the backward kernel timed alone (CUDA graph)
-              beside the plain version (``ref.flash_attention_bwd``), SDPA's
-              backward and the bound, and the Function's backward as autograd
-              runs it; then
+              relative L2); the backward kernel timed alone (CUDA graph) and
+              its D, dK/dV and dQ kernels (torch.profiler) beside the plain
+              version (``ref.flash_attention_bwd``), SDPA's backward and the
+              bound, and the Function's backward as autograd runs it beside
+              SDPA's (both eager); the same at qwen3-8b's training attention
+              (1 x 4,096, H 32, KV 8, hd 128); then
               tinyllama-1.1b at its published size, bf16
               with an f32 master copy, 20 steps of batch 8 x 2,048 from
               SyntheticLM through the Prefetcher, a checkpoint at step 9 and at
@@ -133,7 +138,7 @@ last line:
               fresh weights bitwise equal to the trained state, steps 10-19
               rerun from step 9's restore within 1e-3 relative; 880 backward
               launches in the 20 steps (22 layers x 2 microbatches x 20), all
-              mma; the median
+              wgmma; the median
               step, tokens/s, the model-FLOP share, torch.profiler's busy share
               and device ms by flash forward, attention backward, GEMMs and
               optimizer, the peak memory; then 3 more steps under
@@ -205,8 +210,8 @@ two commits can be compared in one run, say parent, change, change, parent.
 its times at 131,072 and 1,048,576 sets of 12 rotated past the L2, and the
 SASS of its library (``cuobjdump -sass``; the text beside the library).
 ``--backward-probe SRC`` does the same for the attention backward at
-tinyllama's training shape (``time_attention_backward``: the Function's
-output and gradients held to the plain version's, then timed; a package
+tinyllama's and qwen3-8b's training shapes (``time_attention_backward``: the
+Function's output and gradients held to the plain version's, then timed; a package
 without the backward kernel, as an earlier commit's, times the Function
 and the plain version only).
 ``--mesh-probe SRC`` does the same for phase 11's timed runs at world 1
@@ -308,7 +313,7 @@ FLASH_CASES = [
     (4, 2048, 2048, 32, 4, 64, True, 0, 0.0, 0),    # tinyllama-1.1b training microbatch
 ]
 NO_KEY_CASE = (1, 130, 200, 4, 2, 128, True, 4, 0.0, 197)
-WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes wgmma (forward), mma (backward)
+WGMMA_HEAD_DIMS = (64, 120, 128)          # bf16 at these takes wgmma, forward and backward
 FLASH_SLICE = (1, 4096, 32, 8, 128)       # qwen3-8b prefill: B, S, H, KV, hd (causal, bf16)
 GEMMA2_SWA = (1, 8192, 32, 16, 128, 4096, 50.0)  # gemma2-27b sliding layer: ..., window, softcap
 FLASH_BWD_CASES = [
@@ -321,6 +326,10 @@ FLASH_BWD_CASES = [
     (1, 130, 200, 4, 2, True, 4, 0.0, 197),        # rows 6.. have no valid key: zero dq
     (1, 100, 300, 4, 2, True, 20, 0.0, 150),       # a window narrower than a tile, q_offset
     (1, 1000, 1000, 4, 2, True, 100, 0.0, 0),      # a window not a multiple of a tile
+    # the wgmma tiles' edges (tests/test_torch_flash_bwd.py)
+    (1, 200, 200, 4, 2, True, 0, 0.0, 0),          # Skv ragged at the 128-key block, Sq at 64
+    (2, 90, 330, 4, 2, False, 0, 0.0, 0),          # Sq 90 past a 64-query tile, Skv 330 ragged
+    (1, 70, 260, 8, 1, True, 0, 0.0, 190),         # GQA 8 with a q_offset
 ]
 FLASH_BWD_HEAD_DIMS = (16, 32, 64, 120, 128)
 BWD_REL_L2 = {"float32": 2e-5, "bfloat16": 1e-2}   # dq, dk, dv against the plain version
@@ -747,10 +756,27 @@ def phase_flash_bwd(torch, seed: int, card: str) -> dict:
     ``ref.flash_attention_lse``'s, +inf where a row has no valid key), then
     ``flash_attention_backward`` twice (bitwise equal, launched as the design
     the input takes) against ``ref.flash_attention_bwd`` on the same inputs
-    and output (``BWD_REL_L2``); rows with no valid key get a zero dq."""
+    and output (``BWD_REL_L2``); rows with no valid key get a zero dq. First
+    the registers and spills of the wgmma design's kernels from nvcc's
+    report."""
     import repro_torch.kernels.ops  # registers torch.ops.repro_torch.*  # noqa: F401
+    from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention_bwd as bwd_mod
     from repro_torch.kernels import ref
+
+    wgmma = {}
+    for fn, r in ptxas_report(_build.build_logs.get("flash_attention_bwd", "")).items():
+        m = re.search(r"wg\d+(dkv|dq)_kernelILi(\d+)E", fn)
+        if m:
+            wgmma[f"{m.group(1)}<{m.group(2)}>"] = r
+    print("[kernels] flash_attention_bwd wgmma kernels (nvcc -Xptxas -v; <64> at hd 64, <128> "
+          "at hd 120 and 128): " + ", ".join(
+              f"{n} {r.get('registers')} registers, {r.get('spill_stores')} / "
+              f"{r.get('spill_loads')} bytes of spill stores / loads"
+              for n, r in sorted(wgmma.items())),
+          flush=True)
+    check(len(wgmma) == 4, f"flash_attention_bwd: {sorted(wgmma)} in nvcc's report, not the "
+          "wgmma dkv and dq kernels at 64 and 128 columns")
 
     rng = np.random.default_rng(seed + 3)
     by_design = bwd_mod.flash_attention_bwd.launches_by_design
@@ -767,7 +793,7 @@ def phase_flash_bwd(torch, seed: int, card: str) -> dict:
                                ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd), (b, sq, h, hd)))
                 args = (causal, window, cap, q_offset)
                 kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
-                kind = "mma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
+                kind = "wgmma" if dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS else "simt"
                 out, lse = ops.flash_attention_lse(q, k, v, *args)
                 before = by_design[kind]
                 grads = ops.flash_attention_backward(q, k, v, out, lse, do, *args)
@@ -802,7 +828,8 @@ def phase_flash_bwd(torch, seed: int, card: str) -> dict:
                 del q, k, v, do, out, lse, grads, again, wants
                 free_memory(torch)
     return {"cases": n, "max_err_fp32": errs["float32"], "max_err_bf16": errs["bfloat16"],
-            "max_rel_l2_fp32": rels["float32"], "max_rel_l2_bf16": rels["bfloat16"]}
+            "max_rel_l2_fp32": rels["float32"], "max_rel_l2_bf16": rels["bfloat16"],
+            "wgmma_ptxas": wgmma}
 
 
 def flush_inputs(torch, ns: int, ss: int, rng, device="cuda"):
@@ -1310,6 +1337,27 @@ def profiled_device_ms(torch, run, calls: int) -> dict:
         torch.cuda.synchronize()
     return {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 / calls
             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_ms_per_launch(torch, run, parts: tuple, calls: int = 10) -> dict:
+    """Device ms a launch of the kernels whose names hold ``<part>_kernel``,
+    over ``calls`` calls of ``run`` under torch.profiler: each one's device
+    time over the launches the profiler recorded, which can be fewer than
+    the calls made."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for part in parts:
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and f"{part}_kernel" in e.key]
+        n = sum(e.count for e in evs)
+        ms = sum(getattr(e, "self_device_time_total", 0.0) for e in evs) / 1e3
+        out[part] = ms / n if n else 0.0
+    return out
 
 
 def profile_steps(torch, eng, cfg, rng, median_step_ms: float, card: str) -> dict:
@@ -2154,6 +2202,7 @@ TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_PROFILED = 20, 9, 2
 TRAIN_TOLS = {"float32": (1e-5, 1e-5), "bfloat16": (1e-2, 2e-2)}   # loss rel, grad rel L2
 TRAIN_RESUME_TOL = 1e-3     # resumed losses: cuBLAS and the embedding's atomics reorder sums
 TRAIN_ATTN_SHAPE = (4, 2048, 32, 4, 64)   # one microbatch's attention call: B, S, H, KV, hd
+QWEN3_ATTN_SHAPE = (1, 4096, 32, 8, 128)  # qwen3-8b's training attention call: B, S, H, KV, hd
 TRAIN_ATTN_GRAD_TOL = 1e-2   # relative L2 of dq, dk, dv in bf16 (tests/test_torch_cuda.py)
 TRAIN_DOTS_TOL = 1e-5        # remat="dots" gradients against remat=True's, relative L2, fp32
 TRAIN_DOTS_STEPS = 3         # full-size steps timed under remat="dots" (the first one warms)
@@ -2256,7 +2305,6 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
     want = flash_per_microbatch(cfg) * mb
     want_bwd = backward_per_microbatch(cfg) * mb
     design = "simt" if dtype == "float32" else "wgmma"
-    bwd_design = "simt" if dtype == "float32" else "mma"
     worst = max(rel, key=rel.get)
     res = {"arch": arch, "dtype": dtype, "layers": cfg.n_layers, "batch": b, "seq": s,
            "microbatches": mb, "ce_kernel": kern["ce"], "ce_plain": plain["ce"],
@@ -2283,9 +2331,9 @@ def train_exact(torch, arch: str, dtype: str, seed: int, kernels: dict) -> dict:
           f"gradient through the kernel route: {zero}")
     check(res["flash_launches"] == want and kern["designs"][design] == want,
           f"train {arch} {dtype}: {kern['designs']} flash launches, expected {want} {design}")
-    check(res["backward_launches"] == want_bwd and kern["bwd_designs"][bwd_design] == want_bwd,
+    check(res["backward_launches"] == want_bwd and kern["bwd_designs"][design] == want_bwd,
           f"train {arch} {dtype}: {kern['bwd_designs']} backward launches, expected {want_bwd} "
-          f"{bwd_design}")
+          f"{design}")
     check(res["plain_route_flash_launches"] == res["plain_route_backward_launches"] == 0,
           f"train {arch}: the plain route launched a flash kernel")
     del params, batch, kern, plain
@@ -2580,9 +2628,9 @@ def train_full(torch, seed: int, kernels: dict, card: str) -> dict:
     check(launches["flash_attention"] == want and designs["wgmma"] == want,
           f"train: {designs} flash launches in {TRAIN_STEPS} steps, expected {want} wgmma")
     want_bwd = cfg.n_layers * mb * TRAIN_STEPS
-    check(launches["flash_attention_bwd"] == want_bwd and bwd_designs["mma"] == want_bwd,
+    check(launches["flash_attention_bwd"] == want_bwd and bwd_designs["wgmma"] == want_bwd,
           f"train: {bwd_designs} backward launches in {TRAIN_STEPS} steps, expected {want_bwd} "
-          "mma")
+          "wgmma")
     return res
 
 
@@ -2595,29 +2643,38 @@ def backward_probe(torch, seed: int, card: str) -> dict:
 
 
 def time_attention_backward(torch, card: str) -> dict:
-    """One attention call's gradient at tinyllama's training shape (a
-    microbatch of 4 x 2,048, H 32, KV 4, hd 64, causal, bf16): first
-    ``ops.flash_attention``'s output held to the plain version's
-    (``FLASH_BF16_TOL``) and its dq, dk, dv to autograd through the plain
-    version (``TRAIN_ATTN_GRAD_TOL`` relative L2). Then, timed: the backward
-    kernel alone (``flash_attention_backward`` on the forward kernel's output
-    and log-sum-exp; device time, CUDA graph replay), its plain version
-    ``ref.flash_attention_bwd``, ``scaled_dot_product_attention``'s backward
-    (the library's, a yardstick only) and, as autograd runs them (eager,
-    host launches included), the Function's backward and autograd through
-    the plain version; beside the bound of the function (dq, dk, dv from q,
-    k, v, out, do: ``flash_attention_bwd.cost``, the five products of each
-    causal pair at the bf16 peak; the bytes are far below it). A package
-    without the backward kernel (an earlier commit's, ``--backward-probe``)
-    gets the eager times only."""
+    """``attention_backward_at`` tinyllama's training shape (``TRAIN_ATTN_SHAPE``),
+    and under ``"qwen3_8b"`` at qwen3-8b's (``QWEN3_ATTN_SHAPE``)."""
+    t = attention_backward_at(torch, card, TRAIN_ATTN_SHAPE)
+    t["qwen3_8b"] = attention_backward_at(torch, card, QWEN3_ATTN_SHAPE)
+    return t
+
+
+def attention_backward_at(torch, card: str, shape: tuple) -> dict:
+    """One attention call's gradient at ``shape`` (B, S, H, KV, hd; causal,
+    bf16): first ``ops.flash_attention``'s output held to the plain
+    version's (``FLASH_BF16_TOL``) and its dq, dk, dv to autograd through the
+    plain version (``TRAIN_ATTN_GRAD_TOL`` relative L2). Then, timed: the
+    backward kernel alone (``flash_attention_backward`` on the forward
+    kernel's output and log-sum-exp; device time, CUDA graph replay) and its
+    three kernels' device time a launch by torch.profiler (D, dK/dV, dQ), its plain
+    version ``ref.flash_attention_bwd``, ``scaled_dot_product_attention``'s
+    backward (the library's, a yardstick only) and, as autograd runs them
+    (eager, host launches included), the Function's backward and autograd
+    through the plain version, so the Function and SDPA are also read on the
+    same footing; beside the bound of the function (dq, dk, dv from q, k, v,
+    out, do: ``flash_attention_bwd.cost``, the five products of each causal
+    pair at the bf16 peak; the bytes are far below it). A package without
+    the backward kernel (an earlier commit's, ``--backward-probe``) gets the
+    eager times only."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
 
-    b, s, h, kv, hd = TRAIN_ATTN_SHAPE
+    b, s, h, kv, hd = shape
     g = torch.Generator(device="cuda").manual_seed(5)
-    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
-                   for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
+    q, k, v, do = (torch.randn(dims, generator=g, device="cuda").to(torch.bfloat16)
+                   for dims in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd), (b, s, h, hd)))
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     out = ops.flash_attention(q, k, v)
     want = ref.flash_attention_ref(q, k, v)
@@ -2628,13 +2685,14 @@ def time_attention_backward(torch, card: str) -> dict:
                                  rtol=FLASH_BF16_TOL))
     grad_rel = dict(zip(("dq", "dk", "dv"), (rel_l2(g, w) for g, w in zip(grads, wants))))
     grad_err = max((g.float() - w.float()).abs().max().item() for g, w in zip(grads, wants))
-    print(f"[train] attention at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
-          f"ops.flash_attention's output vs the plain version max_abs_err {out_err:.3e} (tol "
-          f"{FLASH_BF16_TOL:g}); its gradients vs autograd through the plain version, "
-          f"relative L2 " + ", ".join(f"{n} {e:.2e}" for n, e in grad_rel.items())
+    where = f"(B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16)"
+    print(f"[train] attention at {where}: ops.flash_attention's output vs the plain version "
+          f"max_abs_err {out_err:.3e} (tol {FLASH_BF16_TOL:g}); its gradients vs autograd through "
+          f"the plain version, relative L2 "
+          + ", ".join(f"{n} {e:.2e}" for n, e in grad_rel.items())
           + f" (tol {TRAIN_ATTN_GRAD_TOL:g}), max_abs_err {grad_err:.3e}", flush=True)
-    check(out_ok, f"attention at {TRAIN_ATTN_SHAPE}: the kernel disagrees with the plain version")
-    check(max(grad_rel.values()) <= TRAIN_ATTN_GRAD_TOL, f"attention at {TRAIN_ATTN_SHAPE}: "
+    check(out_ok, f"attention at {shape}: the kernel disagrees with the plain version")
+    check(max(grad_rel.values()) <= TRAIN_ATTN_GRAD_TOL, f"attention at {shape}: "
           f"the Function's gradients differ from the plain version's autograd: {grad_rel}")
     del out, want, grads, wants
     free_memory(torch)
@@ -2650,6 +2708,7 @@ def time_attention_backward(torch, card: str) -> dict:
              q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
              enable_gqa=True).transpose(1, 2), 10),
          "library": "scaled_dot_product_attention(is_causal=True, enable_gqa=True) backward"}
+    free_memory(torch)
     with torch.no_grad():
         out = ops.flash_attention(q, k, v)
         t["plain_ms"] = time_ms(torch, lambda _: ref.flash_attention_bwd(q, k, v, out, do), 3)
@@ -2658,8 +2717,9 @@ def time_attention_backward(torch, card: str) -> dict:
 
             ops_ = torch.ops.repro_torch
             out, lse = ops_.flash_attention_lse(q, k, v, True, 0, 0.0, 0)
-            t["ms"] = graph_ms(torch, lambda _: ops_.flash_attention_backward(
-                q, k, v, out, lse, do, True, 0, 0.0, 0), 3, reps=5)
+            call = lambda *_: ops_.flash_attention_backward(q, k, v, out, lse, do, True, 0, 0.0, 0)
+            t["ms"] = graph_ms(torch, call, 3, reps=5)
+            t["kernel_ms"] = kernel_ms_per_launch(torch, call, ("dot", "dkv", "dq"))
             work = bwd_mod.cost(tuple(q.shape), tuple(k.shape), 2, causal=True)
     if "ms" not in t:          # an earlier package: the bound as it was counted then
         work = {"flops": 5 * 2 * b * h * s * s * hd // 2,
@@ -2671,14 +2731,17 @@ def time_attention_backward(torch, card: str) -> dict:
              if work["flops"] / BF16_PEAK_FLOPS >= work["bytes"] / hbm_bytes_per_s(card)
              else "bytes")
     kernel = (f"the backward kernel {t['ms']:.4f} ms (CUDA graph replay, "
-              f"{work['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), " if "ms" in t else "")
-    print(f"[train] attention backward at (B {b}, S {s}, H {h}, KV {kv}, hd {hd}, causal, bf16): "
-          f"{kernel}ops.flash_attention's backward under autograd {t['function_ms']:.3f} ms, "
-          f"the plain version (ref.flash_attention_bwd) {t['plain_ms']:.2f} ms, autograd of "
-          f"the plain forward {t['autograd_plain_ms']:.2f} ms, scaled_dot_product_attention's "
-          f"{t['library_ms']:.3f} ms; bound {t['bound_ms']:.3f} ms by {t['bound_by']} "
+              f"{work['flops'] / t['ms'] / 1e9:.1f} TFLOP/s; by torch.profiler D "
+              f"{t['kernel_ms']['dot']:.4f}, dK/dV {t['kernel_ms']['dkv']:.4f}, dQ "
+              f"{t['kernel_ms']['dq']:.4f} ms), " if "ms" in t else "")
+    print(f"[train] attention backward at {where}: {kernel}the plain version "
+          f"(ref.flash_attention_bwd) {t['plain_ms']:.2f} ms, autograd of the plain forward "
+          f"{t['autograd_plain_ms']:.2f} ms; bound {t['bound_ms']:.3f} ms by {t['bound_by']} "
           f"({work['flops']:.4e} FLOP at {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; {work['bytes']} B)"
           f" on {card}", flush=True)
+    print(f"[train] attention backward at {where}, eager under autograd (host launches "
+          f"included): ops.flash_attention's {t['function_ms']:.3f} ms, "
+          f"scaled_dot_product_attention's {t['library_ms']:.3f} ms", flush=True)
     del q, k, v, do, out
     free_memory(torch)
     return t
@@ -3494,9 +3557,10 @@ def build_all(torch, modules: dict) -> dict:
     bwd = {f: r for f, r in ptxas_report(_build.build_logs.get("flash_attention_bwd", "")).items()
            if "_kernel" in f}
     print(f"[build] attention backward kernels: {bwd}", flush=True)
-    # dot x 2 dtypes; mma dkv and dq x 3 head dims; simt dkv and dq x 7 (dtype, head dim)
-    check(len(bwd) == 2 + 2 * 3 + 2 * 7, f"build: {len(bwd)} attention backward kernels in "
-          "the nvcc report, not 22")
+    # dot x 2 dtypes; wgmma dkv and dq x 2 (hd 64; 120 and 128 as 128 columns); simt dkv
+    # and dq x 7 (dtype, head dim)
+    check(len(bwd) == 2 + 2 * 2 + 2 * 7, f"build: {len(bwd)} attention backward kernels in "
+          "the nvcc report, not 20")
     check(all(r.get("spill_stores", 1) == 0 and r.get("spill_loads", 1) == 0
               for r in bwd.values()), "build: an attention backward kernel spills registers")
     return {"seconds": seconds, "wgmma_ptxas": wgmma, "flush_ptxas": flush, "backward_ptxas": bwd}
@@ -3657,7 +3721,11 @@ def main() -> int:
          "max_abs_err": max(flash_bwd["max_err_fp32"], flash_bwd["max_err_bf16"]),
          **{k: train["attention_backward"][k] for k in (
              "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library", "function_ms",
-             "autograd_plain_ms", "shape", "flops")},
+             "autograd_plain_ms", "shape", "flops", "kernel_ms")},
+         "qwen3_8b_shape": {k: train["attention_backward"]["qwen3_8b"][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "function_ms", "shape",
+             "flops", "kernel_ms", "grad_rel_l2")},
+         "wgmma_ptxas": flash_bwd["wgmma_ptxas"],
          "cases": flash_bwd["cases"], "max_err_fp32": flash_bwd["max_err_fp32"],
          "max_err_bf16": flash_bwd["max_err_bf16"],
          "max_rel_l2_fp32": flash_bwd["max_rel_l2_fp32"],

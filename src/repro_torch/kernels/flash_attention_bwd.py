@@ -6,9 +6,10 @@ the forward kernel of ``flash_attention.py``, from the row log-sum-exps the
 forward saved (``flash_attention_lse``). The ``.cu`` file says what bounds
 it and describes its three kernels (D = rowsum(do * out), dK/dV over the
 query tiles of each key tile, dQ over the key tiles of each query tile) and
-its two designs: ``mma`` (``mma.sync`` tensor cores) for bf16 at head_dim
-64, 120 and 128, ``simt`` (f32 FMAs) for fp32 and for bf16 at head_dim 16
-and 32. Its plain version is ``ref.flash_attention_bwd``, which ``ops``
+its two designs: ``wgmma`` for bf16 at head_dim 64, 120 and 128 (Hopper's
+warpgroup tensor-core products, fed by TMA rings from a producer warp, two
+consumer warpgroups a block), ``simt`` (f32 FMAs) for fp32 and for bf16 at
+head_dim 16 and 32. Its plain version is ``ref.flash_attention_bwd``, which ``ops``
 dispatches to for CPU tensors. This wrapper takes CUDA tensors only: it
 launches the kernels or raises.
 
@@ -26,7 +27,7 @@ import torch
 from . import _build
 from .flash_attention import _DTYPES, _check as _check_forward, pairs
 
-DESIGNS = ("simt", "mma")            # the entry point's design codes 0 and 1
+DESIGNS = ("simt", "wgmma")          # the entry point's design codes 0 and 1
 _fn = None
 _design_fn = None
 

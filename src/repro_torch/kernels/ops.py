@@ -18,9 +18,10 @@ module registers them and builds nothing.
 Flash attention has a gradient: ``FlashAttention`` runs
 ``flash_attention_lse`` forward (the output and each row's log-sum-exp)
 and ``flash_attention_backward`` backward, on CUDA tensors the Hopper
-backward kernel (``flash_attention_bwd.py``). The JAX package has no
-backward kernel (its training gradient is XLA's autodiff of the jnp
-attention); the port's computes the same gradient.
+backward kernel (``flash_attention_bwd.py``: ``wgmma`` products fed by
+TMA rings for bf16 at head_dim 64, 120 and 128, ``simt`` otherwise). The
+JAX package has no backward kernel (its training gradient is XLA's
+autodiff of the jnp attention); the port's computes the same gradient.
 """
 from __future__ import annotations
 
@@ -134,8 +135,9 @@ class FlashAttention(torch.autograd.Function):
     Hopper kernel, which launches or raises; a remat recompute launches it
     again; on CPU tensors the plain version). Saves q, k, v, the output and
     the rows' log-sum-exps. Backward: the ``flash_attention_backward``
-    operator (on CUDA tensors the Hopper backward kernel, which launches or
-    raises; on CPU tensors ``ref.flash_attention_bwd``), under the profiler
+    operator (on CUDA tensors the Hopper backward kernel, ``wgmma`` or
+    ``simt`` by the input, which launches or raises; on CPU tensors
+    ``ref.flash_attention_bwd``), under the profiler
     range ``flash_attention_backward``."""
 
     @staticmethod

@@ -518,8 +518,7 @@ def test_flash_function_forward_backward_on_card(card, case, dtype):
     hd = case[5]
     q, k, v = (x.requires_grad_() for x in _flash_inputs(case, dt, seed=GRAD_CASES.index(case)))
     do = torch.randn(q.shape, device="cuda", generator=torch.Generator("cuda").manual_seed(1)).to(dt)
-    mma = dt == torch.bfloat16 and hd in chip_smoke.WGMMA_HEAD_DIMS
-    fwd_kind, bwd_kind = ("wgmma", "mma") if mma else ("simt", "simt")
+    kind = "wgmma" if dt == torch.bfloat16 and hd in chip_smoke.WGMMA_HEAD_DIMS else "simt"
     before = dict(cuda_flash.flash_attention.launches_by_design)
     bwd_before = dict(cuda_flash_bwd.flash_attention_bwd.launches_by_design)
     out = ops.flash_attention(q, k, v, **kw)
@@ -528,8 +527,8 @@ def test_flash_function_forward_backward_on_card(card, case, dtype):
     made = {n: c - before[n] for n, c in cuda_flash.flash_attention.launches_by_design.items()}
     bwd_made = {n: c - bwd_before[n]
                 for n, c in cuda_flash_bwd.flash_attention_bwd.launches_by_design.items()}
-    assert made == {"wgmma": 0, "simt": 0, fwd_kind: 1}
-    assert bwd_made == {"mma": 0, "simt": 0, bwd_kind: 1}
+    assert made == {"wgmma": 0, "simt": 0, kind: 1}
+    assert bwd_made == {"wgmma": 0, "simt": 0, kind: 1}
     want_out = ref.flash_attention_ref(q, k, v, **kw)
     wants = torch.autograd.grad(want_out, (q, k, v), do)
     tol = FLASH_TOLS[dtype]

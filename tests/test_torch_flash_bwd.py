@@ -2,13 +2,16 @@
 rehearsed on the CPU, where no CUDA kernel runs.
 
 ``_mirror_bwd`` is the kernel's plan in plain PyTorch: its tile sizes, read
-from the ``.cu``'s ``constexpr`` lines (``_build.kernel_constants``); the
-same tile bounds (the query tiles a key tile visits, the key tiles a query
-tile visits); P = exp(s - lse) from the forward's ``lse``; D = rowsum(do *
-out); dK/dV summed over the heads of a group and the query tiles, dQ over
-the key tiles, in f32; and, for the ``mma`` design, P and dS rounded to
-bf16 before their products. It is held to ``ref.flash_attention_bwd`` and
-to ``jax.vjp`` of JAX's attention (``repro.models.layers._dense_attention``,
+from the ``.cu``'s ``constexpr`` lines (``_build.kernel_constants``), the
+``simt`` design's for the fp32 plan and the ``wgmma`` design's for the bf16
+plan; the same tile bounds (the query tiles a key tile visits, the key
+tiles a query tile visits, and in ``wgmma`` the tiles each consumer
+warpgroup's 64 rows see inside its block's); P = exp(s - lse) from the
+forward's ``lse``; D = rowsum(do * out); dK/dV summed over the heads of a
+group and the query tiles, dQ over the key tiles, in f32; and, for the
+``wgmma`` design, P and dS rounded to bf16 before their products. It is
+held to ``ref.flash_attention_bwd`` and to ``jax.vjp`` of JAX's attention
+(``repro.models.layers._dense_attention``,
 or ``repro.kernels.ref.flash_attention_ref`` where a row has no valid key),
 on inputs from numpy: fp32 plan within 2e-5, bf16 plan within 1e-2
 relative L2 (``chip_smoke.py``'s ``TRAIN_ATTN_GRAD_TOL``). Every pair the
@@ -30,9 +33,16 @@ from repro_torch.launch import cost
 from test_torch_train import ATTN_CASES
 
 # keys of a dK/dV block, queries of its inner tile; queries of a dQ block,
-# keys of its inner tile: the kernel's own constexpr lines
-TILES = dict(zip(("kv_keys", "kv_queries", "q_rows", "q_keys"), _build.kernel_constants(
-    "flash_attention_bwd", "kKvKeys", "kKvQueries", "kQRows", "kQKeys")))
+# keys of its inner tile: the kernel's own constexpr lines, by design. A
+# wgmma block's keys (dK/dV) or rows (dQ) are split among consumer
+# warpgroups of WG_ROWS, each skipping the tiles its own rows do not see.
+_NAMES = ("kv_keys", "kv_queries", "q_rows", "q_keys")
+TILES = {"simt": dict(zip(_NAMES, _build.kernel_constants(
+             "flash_attention_bwd", "kKvKeys", "kKvQueries", "kQRows", "kQKeys"))),
+         "wgmma": dict(zip(_NAMES, _build.kernel_constants(
+             "flash_attention_bwd", "kWgKvKeys", "kWgKvQueries", "kWgQRows", "kWgQKeys")))}
+WG_ROWS = {"simt": None, "wgmma": 64}
+PLAN_DESIGN = {"fp32": "simt", "bf16": "wgmma"}
 F32_TOL = 2e-5
 BF16_REL_L2 = 1e-2
 
@@ -46,6 +56,11 @@ CASES = {
     "gqa_1": (1, 80, 80, 2, 2, 16, True, 0, 0.0, 0),
     "gqa_2": (1, 80, 80, 4, 2, 16, True, 0, 0.0, 0),
     "gqa_8": (1, 80, 80, 8, 1, 16, True, 0, 0.0, 0),
+    # the wgmma tiles' edges: Skv ragged at the 128-key block, Sq not a
+    # multiple of the 64-query tile or the 128-row block, GQA 8 with q_offset
+    "ragged_wg_keys": (1, 90, 200, 4, 2, 16, False, 0, 0.0, 0),
+    "ragged_wg_causal": (1, 200, 200, 2, 1, 16, True, 0, 0.0, 0),
+    "gqa_8_q_offset": (1, 70, 260, 8, 1, 16, True, 0, 0.0, 190),
 }
 
 
@@ -91,15 +106,16 @@ def _q_key_cols(q0, nq, skv, causal, window, q_offset):
     return lo, hi
 
 
-def _mirror_bwd(q, k, v, out, lse, do, *, causal, window, softcap, q_offset, round_bf16):
-    """(dq, dk, dv) in f32 by the kernel's plan, and the (Sq, Skv) pairs its
-    dK/dV and dQ tiles visit. q, out, do: (B, Sq, H, hd); k, v: (B, Skv, KV,
-    hd); lse: (B, H, Sq); all f32 tensors."""
+def _mirror_bwd(q, k, v, out, lse, do, *, causal, window, softcap, q_offset, design):
+    """(dq, dk, dv) in f32 by the kernel's plan of ``design``, and the (Sq,
+    Skv) pairs its dK/dV and dQ tiles visit. q, out, do: (B, Sq, H, hd); k,
+    v: (B, Skv, KV, hd); lse: (B, H, Sq); all f32 tensors."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     rep = h // kvh
     scale = hd ** -0.5
-    rnd = (lambda x: x.bfloat16().float()) if round_bf16 else (lambda x: x)
+    tiles, wg = TILES[design], WG_ROWS[design]
+    rnd = (lambda x: x.bfloat16().float()) if design == "wgmma" else (lambda x: x)
     heads = lambda x: x.reshape(b, sq, kvh, rep, hd).permute(0, 2, 3, 1, 4)  # (B, KV, rep, Sq, hd)
     qh, doh = heads(q), heads(do)
     dsum = (do * out).sum(-1).reshape(b, sq, kvh, rep).permute(0, 2, 3, 1)  # (B, KV, rep, Sq)
@@ -118,33 +134,45 @@ def _mirror_bwd(q, k, v, out, lse, do, *, causal, window, softcap, q_offset, rou
 
     dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
     seen_kv = torch.zeros((sq, skv), dtype=torch.bool)
-    for k0 in range(0, skv, TILES["kv_keys"]):
-        cols = slice(k0, min(k0 + TILES["kv_keys"], skv))
-        lo, hi = _kv_query_rows(k0, cols.stop - k0, sq, causal, window, q_offset)
-        for r in range(rep if lo <= hi else 0):
-            for t in range(lo // TILES["kv_queries"], hi // TILES["kv_queries"] + 1):
-                rows = slice(t * TILES["kv_queries"], min((t + 1) * TILES["kv_queries"], sq))
-                qt, dot = qh[:, :, r, rows], doh[:, :, r, rows]
-                p, ds = p_ds(qt @ kh[:, :, cols].transpose(-1, -2),
-                             dot @ vh[:, :, cols].transpose(-1, -2), rows, cols,
-                             lseh[:, :, r, rows], dsum[:, :, r, rows])
-                dv[:, :, cols] += rnd(p).transpose(-1, -2) @ dot
-                dk[:, :, cols] += rnd(ds).transpose(-1, -2) @ qt
-                seen_kv[rows, cols] = True
+    nq = tiles["kv_queries"]
+    for k0 in range(0, skv, tiles["kv_keys"]):
+        stop = min(k0 + tiles["kv_keys"], skv)
+        lo, hi = _kv_query_rows(k0, stop - k0, sq, causal, window, q_offset)
+        for g0 in range(k0, stop, wg or stop - k0):     # the block's consumer warpgroups
+            cols = slice(g0, min(g0 + (wg or stop - k0), stop))
+            w_lo, w_hi = _kv_query_rows(g0, cols.stop - g0, sq, causal, window, q_offset)
+            for r in range(rep if lo <= hi else 0):
+                for t in range(lo // nq, hi // nq + 1):
+                    if not w_lo // nq <= t <= (w_hi // nq if w_lo <= w_hi else -1):
+                        continue
+                    rows = slice(t * nq, min((t + 1) * nq, sq))
+                    qt, dot = qh[:, :, r, rows], doh[:, :, r, rows]
+                    p, ds = p_ds(qt @ kh[:, :, cols].transpose(-1, -2),
+                                 dot @ vh[:, :, cols].transpose(-1, -2), rows, cols,
+                                 lseh[:, :, r, rows], dsum[:, :, r, rows])
+                    dv[:, :, cols] += rnd(p).transpose(-1, -2) @ dot
+                    dk[:, :, cols] += rnd(ds).transpose(-1, -2) @ qt
+                    seen_kv[rows, cols] = True
 
     dq = torch.zeros_like(qh)
     seen_q = torch.zeros((sq, skv), dtype=torch.bool)
-    for q0 in range(0, sq, TILES["q_rows"]):
-        rows = slice(q0, min(q0 + TILES["q_rows"], sq))
-        lo, hi = _q_key_cols(q0, rows.stop - q0, skv, causal, window, q_offset)
-        for kv0 in range(lo // TILES["q_keys"] * TILES["q_keys"], hi, TILES["q_keys"]):
-            cols = slice(kv0, min(kv0 + TILES["q_keys"], skv))
-            kt = kh[:, :, None, cols]
-            p, ds = p_ds(qh[..., rows, :] @ kt.transpose(-1, -2),
-                         doh[..., rows, :] @ vh[:, :, None, cols].transpose(-1, -2), rows, cols,
-                         lseh[..., rows], dsum[..., rows])
-            dq[..., rows, :] += rnd(ds) @ kt
-            seen_q[rows, cols] = True
+    nk = tiles["q_keys"]
+    for q0 in range(0, sq, tiles["q_rows"]):
+        stop = min(q0 + tiles["q_rows"], sq)
+        lo, hi = _q_key_cols(q0, stop - q0, skv, causal, window, q_offset)
+        for g0 in range(q0, stop, wg or stop - q0):     # the block's consumer warpgroups
+            rows = slice(g0, min(g0 + (wg or stop - q0), stop))
+            w_lo, w_hi = _q_key_cols(g0, rows.stop - g0, skv, causal, window, q_offset)
+            for kv0 in range(lo // nk * nk, hi, nk):
+                if not (kv0 < w_hi and kv0 + nk > w_lo):
+                    continue
+                cols = slice(kv0, min(kv0 + nk, skv))
+                kt = kh[:, :, None, cols]
+                p, ds = p_ds(qh[..., rows, :] @ kt.transpose(-1, -2),
+                             doh[..., rows, :] @ vh[:, :, None, cols].transpose(-1, -2), rows,
+                             cols, lseh[..., rows], dsum[..., rows])
+                dq[..., rows, :] += rnd(ds) @ kt
+                seen_q[rows, cols] = True
 
     dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return (dq, (dk * scale).transpose(1, 2), dv.transpose(1, 2)), seen_kv, seen_q, mask
@@ -173,7 +201,8 @@ def test_mirror_of_the_kernel_plan(name, plan):
     out, lse = ref.flash_attention_lse(tq, tk, tv, **kw)
     if bf16:        # the forward kernel writes its output in bf16
         out = out.bfloat16().float()
-    got, seen_kv, seen_q, mask = _mirror_bwd(tq, tk, tv, out, lse, tdo, round_bf16=bf16, **kw)
+    got, seen_kv, seen_q, mask = _mirror_bwd(tq, tk, tv, out, lse, tdo, design=PLAN_DESIGN[plan],
+                                             **kw)
     assert not (mask & ~seen_kv).any(), "the dK/dV tiles skip a valid pair"
     assert not (mask & ~seen_q).any(), "the dQ tiles skip a valid pair"
     wants = [[g.numpy() for g in ref.flash_attention_bwd(tq, tk, tv, out, tdo, **kw)],
