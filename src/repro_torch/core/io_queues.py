@@ -8,12 +8,15 @@ Two layers:
   discrete-event simulator and the real executor so both are testable against
   the same invariants.
 * ``IOExecutor`` — a real thread-per-device runtime used by the async
-  checkpointer: device == a storage target (one shard file / one host NIC
-  stream). This is the SAFS "dedicated I/O thread per SSD" design.
+  checkpointer and the KV pool's offload tier: device == a storage target
+  (one shard file / one host NIC stream). This is the SAFS "dedicated I/O
+  thread per SSD" design. It also sums, per queue, how long each issued
+  request waited between ``submit`` and issue (``IOStats.wait_*_s``).
 """
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -53,7 +56,10 @@ class IOStats:
     issued_high: int = 0
     issued_low: int = 0
     discarded_stale: int = 0
-    completed: int = 0
+    # seconds issued requests spent queued, submit to issue (IOExecutor only;
+    # a stale-discarded request is never issued and is not counted)
+    wait_high_s: float = 0.0
+    wait_low_s: float = 0.0
 
 
 @dataclass
@@ -67,6 +73,8 @@ class IORequest:
     # tenant class for QoS-aware queues (core/qos.py TenantDualQueue);
     # ignored by the plain DualQueue discipline
     tenant: int = 0
+    # perf_counter_ns at IOExecutor.submit, for the queue-wait totals
+    submitted_ns: int = 0
 
 
 @dataclass
@@ -128,7 +136,6 @@ class DualQueue:
             self.inflight_high -= 1
         else:
             self.inflight_low -= 1
-        self.stats.completed += 1
         if req.on_complete:
             req.on_complete(req.payload)
 
@@ -164,6 +171,7 @@ class IOExecutor:
                 self._threads.append(t)
 
     def submit(self, device: int, req: IORequest) -> bool:
+        req.submitted_ns = time.perf_counter_ns()
         with self._cvs[device]:
             ok = self._queues[device].submit(req)
             if ok:
@@ -189,7 +197,6 @@ class IOExecutor:
         return self._queues[device].stats
 
     def drain(self, timeout: float = 60.0) -> bool:
-        import time
         deadline = time.monotonic() + timeout
         while time.monotonic() < deadline:
             with_work = False
@@ -224,6 +231,12 @@ class IOExecutor:
             run_refill = False
             with cv:
                 req = q.pop_next()
+                if req is not None:
+                    wait = (time.perf_counter_ns() - req.submitted_ns) / 1e9
+                    if req.priority == HIGH:
+                        q.stats.wait_high_s += wait
+                    else:
+                        q.stats.wait_low_s += wait
                 if self._refill_pending[dev]:
                     self._refill_pending[dev] = False
                     run_refill = True

@@ -31,6 +31,13 @@ request's state, or from none; keeping the state makes the resumed tokens
 those of dense greedy decode. The copy is kept in host memory, as the host
 tier keeps pages, so preempted requests hold no device memory: about 1.6 MB
 a layer a row for mamba2-780m in float32, 76 MB over its 48 layers.
+
+The engine times itself (``serving/spans.py``): the decode step split into
+the pool lock's wait, the launches and the rest, each prefill, the blocking
+offloads and fetch waits of the engine thread, each background copy-out of
+the IO threads, and the offload queues' waits; ``stats()`` returns their
+totals beside the pool's counters, and under a profiler each span is also a
+``serve.*`` or ``kv.*`` range on the trace.
 """
 from __future__ import annotations
 
@@ -47,6 +54,7 @@ from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from .kv_pool import PagedKVPool
 from .paged_model import init_pools, make_paged_decode_step
+from .spans import Spans
 
 MAX_PAGES_PER_SEQ = 512
 
@@ -71,7 +79,6 @@ class Request:
     row: int = -1
     length: int = 0
     pages: list[int] = field(default_factory=list)     # tags, in order
-    stall_steps: int = 0
     # the row's mamba state while preempted, in host memory:
     # per mamba position {name: tensor}
     mamba_state: Optional[dict] = None
@@ -94,11 +101,19 @@ class ServeEngine:
         self.pools = init_pools(cfg, num_pages=n_data_pages + 1,
                                 page_size=page_size, max_batch=max_batch,
                                 device=self.device)
+        self.spans = spans = Spans()
         self.pool = PagedKVPool(num_sets, set_size, n_targets=2,
                                 copy_out=self._copy_out, copy_in=self._copy_in,
                                 # paper: trigger at half the set (6 of 12)
-                                flush_trigger=max(0, set_size // 2 - 1))
-        self.step_fn = make_paged_decode_step(cfg, page_size=page_size)
+                                flush_trigger=max(0, set_size // 2 - 1),
+                                spans=spans)
+        paged_step = make_paged_decode_step(cfg, page_size=page_size)
+
+        def step_fn(*args):
+            # the launches only: it returns once the step is enqueued
+            with spans.span("serve.decode.launch"):
+                return paged_step(*args)
+        self.step_fn = step_fn
         self._attn_positions = [i for i, s in enumerate(cfg.block) if s.kind == "attn"]
         self._mamba_positions = [i for i, s in enumerate(cfg.block) if s.kind != "attn"]
         self._reqs: dict[int, Request] = {}
@@ -168,7 +183,8 @@ class ServeEngine:
             if pid is not None:
                 if ev_tag is not None and ev_dirty:
                     # blocking offload of the victim's content (stall)
-                    self.pool.offload_now_evicted(ev_tag, pid, self._copy_out)
+                    with self.spans.span("serve.offload_blocking", f"tag={ev_tag}"):
+                        self.pool.offload_now_evicted(ev_tag, pid, self._copy_out)
                     self.blocking_offloads += 1
                 req.pages.append(tag)
                 return True
@@ -193,9 +209,8 @@ class ServeEngine:
         for tag in req.pages:
             pid = self.pool.alloc.where.get(tag)
             if pid is not None and self.pool.alloc.dirty[pid]:
-                if self.pool.alloc.full[pid] and self.use_flusher:
-                    req.stall_steps += 1   # flusher hadn't gotten to it yet
-                self.pool.offload_now(tag)
+                with self.spans.span("serve.offload_blocking", f"tag={tag}"):
+                    self.pool.offload_now(tag)
                 self.blocking_offloads += 1
         self.pool.alloc.set_pinned(req.pages, False)
         with self._pools_lock:
@@ -210,10 +225,12 @@ class ServeEngine:
     def _free(self, req: Request) -> None:
         self.pool.alloc.free(req.pages)
         # scan by rid: host-tier copies of pages evicted while preempted are
-        # no longer listed in req.pages but must not leak
-        for tag in [t for t in self.pool.host_tier
-                    if t // MAX_PAGES_PER_SEQ == req.rid]:
-            self.pool.host_tier.pop(tag, None)
+        # no longer listed in req.pages but must not leak. The IO threads
+        # insert under the pool's lock, so the scan holds it too.
+        with self.pool._lock:
+            for tag in [t for t in self.pool.host_tier
+                        if t // MAX_PAGES_PER_SEQ == req.rid]:
+                self.pool.host_tier.pop(tag, None)
         req.pages.clear()
 
     # ------------------------------------------------------------- admit
@@ -256,50 +273,53 @@ class ServeEngine:
             # a page evicted while preempted lives only in the host tier
             fetchable = [self._tag(rid, i) for i in range(n_pages)
                          if self._tag(rid, i) in self.pool.host_tier]
-            self.pool.fetch(fetchable)
+            with self.spans.span("serve.fetch_wait", f"rid={rid}"):
+                self.pool.fetch(fetchable)
             self._refill_row(req, tokens)
         else:
             self._prefill_row(req, tokens)
         return True
 
     def _prefill_row(self, req: Request, tokens: list[int]) -> None:
-        row = req.row
-        s = len(tokens)
-        pad = len(req.pages) * self.page
-        toks = torch.tensor([tokens], dtype=torch.long, device=self.device)
-        logits, cache = T.prefill(self.params, toks, self.cfg, max_seq=pad)
-        # NOTE: prefill caches beyond ``s`` are zeros — masked by lengths.
-        with self._pools_lock:
-            for i in self._mamba_positions:
-                for k, a in self.pools[i].items():
-                    a[:, row] = cache.layers[i][k][:, 0]
-            for i in self._attn_positions:
-                p, lc = self.pools[i], cache.layers[i]
-                k = lc["k"][:, 0]                          # (nb, pad, kvh, hd)
-                v = lc["v"][:, 0]
-                for tag in req.pages:
-                    pi = tag % MAX_PAGES_PER_SEQ        # page index from tag
-                    pid = self.pool.alloc.where[tag]
-                    sl = slice(pi * self.page, (pi + 1) * self.page)
-                    p["k"][:, pid] = k[:, sl]
-                    p["v"][:, pid] = v[:, sl]
-        self._lengths[row] = s
-        self._tables[row, :] = self.scratch_page
-        for tag in req.pages:
-            self._tables[row, tag % MAX_PAGES_PER_SEQ] = \
-                self.pool.alloc.where[tag]
-        # the prompt's last-position logits emit the FIRST generated token
-        first = int(logits[0, -1].argmax())
-        req.out.append(first)
-        self._last_tok[row] = first
-        req.length = s
-        # full prompt pages are immediately flushable
-        if self.use_flusher:
+        with self.spans.span("serve.prefill", f"rid={req.rid}"):
+            row = req.row
+            s = len(tokens)
+            pad = len(req.pages) * self.page
+            toks = torch.tensor([tokens], dtype=torch.long, device=self.device)
+            logits, cache = T.prefill(self.params, toks, self.cfg, max_seq=pad)
+            # NOTE: prefill caches beyond ``s`` are zeros — masked by lengths.
+            with self._pools_lock:
+                for i in self._mamba_positions:
+                    for k, a in self.pools[i].items():
+                        a[:, row] = cache.layers[i][k][:, 0]
+                for i in self._attn_positions:
+                    p, lc = self.pools[i], cache.layers[i]
+                    k = lc["k"][:, 0]                          # (nb, pad, kvh, hd)
+                    v = lc["v"][:, 0]
+                    for tag in req.pages:
+                        pi = tag % MAX_PAGES_PER_SEQ        # page index from tag
+                        pid = self.pool.alloc.where[tag]
+                        sl = slice(pi * self.page, (pi + 1) * self.page)
+                        p["k"][:, pid] = k[:, sl]
+                        p["v"][:, pid] = v[:, sl]
+            self._lengths[row] = s
+            self._tables[row, :] = self.scratch_page
             for tag in req.pages:
-                pi = tag % MAX_PAGES_PER_SEQ
-                if (pi + 1) * self.page <= s:
-                    self.pool.alloc.mark_full(tag)
-                    self.pool.note_page_full(self.pool.alloc.set_of(tag))
+                self._tables[row, tag % MAX_PAGES_PER_SEQ] = \
+                    self.pool.alloc.where[tag]
+            # the prompt's last-position logits emit the FIRST generated token
+            first = int(logits[0, -1].argmax())
+            req.out.append(first)
+            self._last_tok[row] = first
+            req.length = s
+            # full prompt pages are immediately flushable
+            if self.use_flusher:
+                for tag in req.pages:
+                    pi = tag % MAX_PAGES_PER_SEQ
+                    if (pi + 1) * self.page <= s:
+                        self.pool.alloc.mark_full(tag)
+                        self.pool.note_page_full(self.pool.alloc.set_of(tag))
+        self.spans.add("prefill_tokens", len(tokens))
 
     def _refill_row(self, req: Request, tokens: list[int]) -> None:
         """Resume: pages were fetched back by tag; rebuild the table/row, and
@@ -344,14 +364,23 @@ class ServeEngine:
         if not active_rows:
             return
         dev = self.device
-        with self._pools_lock:
-            logits = self.step_fn(
-                self.params, self.pools,
-                torch.from_numpy(self._last_tok[:, None]).to(dev),
-                torch.from_numpy(self._lengths).to(dev),
-                torch.from_numpy(self._tables).to(dev),
-                torch.tensor(active_rows, dtype=torch.long, device=dev))
-        toks = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+        # serve.decode: the pool lock's wait, the launches (inside step_fn),
+        # and the rest (the inputs' copies, the wait for the device's tokens)
+        with self.spans.span("serve.decode"):
+            with self.spans.span("serve.decode.lock"):
+                self._pools_lock.acquire()
+            try:
+                logits = self.step_fn(
+                    self.params, self.pools,
+                    torch.from_numpy(self._last_tok[:, None]).to(dev),
+                    torch.from_numpy(self._lengths).to(dev),
+                    torch.from_numpy(self._tables).to(dev),
+                    torch.tensor(active_rows, dtype=torch.long, device=dev))
+            finally:
+                self._pools_lock.release()
+            toks = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
+        self.spans.add("decode_rows_active", len(active_rows))
+        self.spans.add("decode_rows_computed", len(toks))
         # GClock touch: every resident page of every active row was read
         for i in active_rows:
             self.pool.alloc.touch(self._reqs[self._rows[i]].pages)
@@ -385,7 +414,11 @@ class ServeEngine:
             self.step()
 
     def stats(self) -> dict:
-        s = self.pool.alloc.stats
+        """The pool's counters, then the spans' and the offload queues'
+        totals since the engine was built: all numbers, seconds (``*_s``) or
+        counts, so two readings subtract."""
+        s, sp = self.pool.alloc.stats, self.spans
+        io = [self.pool.exec.stats(d) for d in range(self.pool.alloc.n_targets)]
         return {
             "offloads": s.offloads, "fetches": s.fetches,
             "stale_discards": s.stale_discards,
@@ -394,6 +427,22 @@ class ServeEngine:
             "alloc_failures": s.alloc_failures,
             "preemptions": self.preemptions,
             "blocking_offloads": self.blocking_offloads,
+            "decode_steps": sp.count("serve.decode"),
+            "decode_rows_active": sp.count("decode_rows_active"),
+            "decode_rows_computed": sp.count("decode_rows_computed"),
+            "decode_s": sp.seconds("serve.decode"),
+            "decode_lock_s": sp.seconds("serve.decode.lock"),
+            "decode_launch_s": sp.seconds("serve.decode.launch"),
+            "prefill_s": sp.seconds("serve.prefill"),
+            "prefill_tokens": sp.count("prefill_tokens"),
+            "blocking_offload_s": sp.seconds("serve.offload_blocking"),
+            "fetch_wait_s": sp.seconds("serve.fetch_wait"),
+            "offload_io_n": sp.count("kv.offload"),
+            "offload_io_s": sp.seconds("kv.offload"),
+            "flush_issued": sum(q.issued_low for q in io),
+            "flush_wait_s": sum(q.wait_low_s for q in io),
+            "fetch_issued": sum(q.issued_high for q in io),
+            "fetch_queue_wait_s": sum(q.wait_high_s for q in io),
         }
 
     def close(self):

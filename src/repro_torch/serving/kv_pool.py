@@ -34,6 +34,7 @@ import numpy as np
 from repro_torch.core import policies
 from repro_torch.core.flusher import DirtyPageFlusher, FlushRequest, StalenessChecker
 from repro_torch.core.io_queues import HIGH, LOW, IOExecutor, IORequest
+from .spans import Spans
 
 
 def _mix64(x: int) -> int:
@@ -46,7 +47,6 @@ def _mix64(x: int) -> int:
 
 @dataclass
 class PoolStats:
-    allocs: int = 0
     clean_evictions: int = 0
     dirty_evictions: int = 0          # blocking offload on the alloc path
     alloc_failures: int = 0           # -> engine preempts a sequence
@@ -124,7 +124,6 @@ class PagedAllocator:
         retry. ``evicted_dirty`` True means the caller owes a blocking
         offload of the victim before reusing the slot (the stall the flusher
         makes rare)."""
-        self.stats.allocs += 1
         page = None
         s1 = self.set_of(tag)
         s2 = self.set2_of(tag)
@@ -230,20 +229,23 @@ class PagedKVPool:
     The device tensors live in ``engine``;
     this class owns placement (allocator), the host tier (the "SSD"), and the
     background offload pipeline. ``copy_out(tag) -> host tensors`` and
-    ``copy_in(tag, arrays)`` are provided by the engine.
+    ``copy_in(tag, arrays)`` are provided by the engine, and so is ``spans``
+    (the engine's ``Spans``; without one the pool makes its own), in which
+    each background copy-out on an IO thread is a ``kv.offload`` span.
     """
 
     def __init__(self, num_sets: int, set_size: int, *, n_targets: int = 2,
                  copy_out: Callable, copy_in: Callable,
                  flush_trigger: int = policies.FLUSH_TRIGGER,
                  max_pending_per_target: int = 64,
-                 offload_delay: float = 0.0):
+                 offload_delay: float = 0.0, spans: Optional[Spans] = None):
         self.alloc = PagedAllocator(num_sets, set_size)
         self.alloc.n_targets = n_targets
         self.host_tier: dict[int, tuple] = {}
         self._copy_out = copy_out
         self._copy_in = copy_in
         self._offload_delay = offload_delay
+        self.spans = spans if spans is not None else Spans()
         self._lock = threading.Lock()
         self.flusher = DirtyPageFlusher(
             self.alloc, n_targets, trigger=flush_trigger,
@@ -269,12 +271,14 @@ class PagedKVPool:
             time.sleep(self._offload_delay)
         if payload["op"] == "offload":
             tag = payload["tag"]
-            data = self._copy_out(tag)
-            if data is not None:
-                with self._lock:
-                    self.host_tier[tag] = data
-                    self.alloc.mark_clean(tag)
-                    self.alloc.stats.offloads += 1
+            # the copy-out, its wait for the engine's pool lock included
+            with self.spans.span("kv.offload", f"tag={tag}"):
+                data = self._copy_out(tag)
+                if data is not None:
+                    with self._lock:
+                        self.host_tier[tag] = data
+                        self.alloc.mark_clean(tag)
+                        self.alloc.stats.offloads += 1
         else:                                     # fetch (HIGH)
             tag = payload["tag"]
             self._copy_in(tag, self.host_tier[tag])
