@@ -1,11 +1,21 @@
 """Mixture-of-Experts FFN in PyTorch, mirroring ``repro/models/moe.py``:
-top-k routing and a capacity-bounded, sort-free dispatch.
+top-k routing and a capacity-bounded dispatch.
 
-Dispatch is gather/scatter based: each expert gets a buffer of ``cap`` token
-rows (``_capacity``), the three per-expert products run as batched matmuls
-over ``(E, cap, d)``, and the combine gathers each kept assignment's row back.
-Every expert's buffer is computed whatever its fill, as in JAX, so a decode
-step reads every expert's weights.
+Each expert gets a buffer of ``cap`` token rows (``_capacity``), the three
+per-expert products run as batched matmuls over ``(E, cap, d)``, and the
+combine gathers each kept assignment's row back. Every expert's buffer is
+computed whatever its fill, as in JAX, so a decode step reads every expert's
+weights.
+
+An assignment's slot is JAX's: the running count of its expert over the
+assignments in token-major order. JAX takes it from a cumsum down a one-hot
+(T*k, E), which on the card is a scan of E lanes each T*k long; the port takes
+it from one stable sort of the expert ids (its rank among its expert's
+assignments, which the stable sort keeps in token-major order), so the same
+assignments drop. Kept slots are unique, so both gathers (token rows into
+the buffer, expert rows back to the assignments) have a backward that is a
+gather through the inverse map (``_GatherRows``), with no accumulating
+scatter.
 
 Over a mesh, ``moe_ffn`` runs ``moe_local`` under ``local_map`` (JAX's
 ``shard_map``): expert parallelism ships each expert's rows to the rank
@@ -68,14 +78,64 @@ def route(x, params, cfg: ModelConfig, stats_groups=()):
 
 
 def dispatch(idx, n_experts: int, cap: int):
-    """Sort-free capacity dispatch of the (T, k) expert ids: an assignment's
-    slot is the running count of its expert over the T*k assignments in
-    token-major order. Returns (keep (T*k,) bool: slot < cap, dest (T*k,):
-    expert * cap + slot where kept, else the overflow slot E * cap)."""
+    """Capacity dispatch of the (T, k) expert ids: an assignment's slot is
+    the running count of its expert over the T*k assignments in token-major
+    order, its rank in a stable sort of the ids less its expert's start.
+    Returns (keep (T*k,) bool: slot < cap, dest (T*k,): expert * cap + slot
+    where kept, else the overflow slot E * cap). No host sync."""
     e_flat = idx.reshape(-1)
-    pos = (torch.cumsum(F.one_hot(e_flat, n_experts), dim=0) - 1).gather(1, e_flat[:, None])[:, 0]
+    ids, order = torch.sort(e_flat, stable=True)
+    # an id's first index in the sorted ids is its expert's start
+    rank = torch.arange(e_flat.numel(), device=idx.device) - torch.searchsorted(ids, ids)
+    pos = torch.empty_like(rank).scatter_(0, order, rank)           # back to token-major
     keep = pos < cap
-    return keep, torch.where(keep, e_flat * cap + pos, n_experts * cap)
+    return keep, torch.where(keep, pos.add(e_flat, alpha=cap), n_experts * cap)
+
+
+def slot_sources(dest, n_slots: int):
+    """The inverse of ``dispatch``'s ``dest``: each of the ``n_slots`` slots'
+    assignment, the assignments' count where the slot is empty. Kept slots
+    are unique; the overflow slot is cut off unread."""
+    n = dest.numel()
+    src = torch.full((n_slots + 1,), n, dtype=torch.long, device=dest.device)
+    return src.scatter(0, dest, torch.arange(n, device=dest.device))[:n_slots]
+
+
+def _padded(x):
+    """``x`` (n, d) with a zero row n appended."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))], dim=0)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_padded(src)[index]``, whose backward is ``_padded(grad)[inverse]``
+    summed over each ``group`` of consecutive rows: ``inverse`` lists, for
+    each row of ``src``, the ``group`` output rows that read it, the output's
+    row count (its zero row) where fewer do. Exact where every output row
+    reads one row of ``src`` or the zero row, which holds of both MoE
+    gathers."""
+
+    @staticmethod
+    def forward(ctx, src, index, inverse, group):
+        ctx.save_for_backward(inverse)
+        ctx.group = group
+        return _padded(src)[index]
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse, = ctx.saved_tensors
+        rows = _padded(g)[inverse]
+        if ctx.group > 1:
+            rows = rows.view(-1, ctx.group, rows.shape[1]).sum(1)
+        return rows, None, None, None
+
+
+def _gather_rows(src, index, inverse, group: int = 1):
+    """``_padded(src)[index]``: through ``_GatherRows`` where autograd
+    records, else directly (serving, where each op call's host cost
+    counts)."""
+    if torch.is_grad_enabled():
+        return _GatherRows.apply(src, index, inverse, group)
+    return _padded(src)[index]
 
 
 def moe_local(x, params, cfg: ModelConfig, *, ep_group=None, tp_group=None, ep_size: int = 1,
@@ -93,14 +153,11 @@ def moe_local(x, params, cfg: ModelConfig, *, ep_group=None, tp_group=None, ep_s
     w, idx, aux = route(xf, params, cfg, stats_group)
 
     cap = _capacity(t, cfg, capacity_factor)
-    keep, dest = dispatch(idx, e, cap)
-    token = torch.arange(t * k_top, device=x.device) // k_top
-    buf = torch.full((e * cap + 1,), t, dtype=torch.long, device=x.device)
-    # kept slots are unique; the overflow slot is cut off unread
-    buf = buf.scatter(0, dest, token)[:e * cap]
+    _, dest = dispatch(idx, e, cap)
+    src = slot_sources(dest, e * cap)
+    buf = src // k_top                                                # slot -> token, t where empty
 
-    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
-    xg = x_pad[buf].reshape(e, cap, d)                                # (E, C, d)
+    xg = _gather_rows(xf, buf, dest, k_top).reshape(e, cap, d)        # (E, C, d)
     ep = ep_group is not None and ep_size > 1
     if ep:
         xg = experts_to_owners(xg, ep_group, ep_size)                # (E/D, C*D, d)
@@ -111,8 +168,7 @@ def moe_local(x, params, cfg: ModelConfig, *, ep_group=None, tp_group=None, ep_s
         y = rows_to_sources(y, ep_group, ep_size)                     # (E, C, d)
     y = y.reshape(e * cap, d)
 
-    out_tk = y[torch.where(keep, dest, 0)]                           # (T*K, d)
-    out_tk = torch.where(keep[:, None], out_tk, out_tk.new_zeros(()))
+    out_tk = _gather_rows(y, dest, src)                               # (T*K, d), 0 if dropped
     out = (out_tk.reshape(t, k_top, d) * w[..., None].to(y.dtype)).sum(dim=1)
     if tp_group is not None:
         # after the token combine: a (T, d) sum, not the (E, C, d) buffer's

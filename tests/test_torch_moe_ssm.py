@@ -9,6 +9,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs import get_config as jax_get_config, reduced as jax_reduced
 from repro.models import moe as JM
@@ -130,6 +132,178 @@ def test_moe_ffn_refuses_a_mesh():
     y, aux = M.moe_ffn(_t(x), tp, cfg, mesh=MeshShape({"model": 1}))
     want, want_aux = M.moe_local(_t(x), tp, cfg)
     assert torch.equal(y, want) and torch.equal(aux["lb"], want_aux["lb"])
+
+
+# The dispatch on a stable sort, held to the one-hot cumsum it replaced
+# (JAX's formula) and to the gathers autograd differentiates through indexing.
+
+def _dispatch_by_cumsum(idx, n_experts, cap):
+    """The slots as JAX computes them: a cumsum down the (T*k, E) one-hot."""
+    e_flat = idx.reshape(-1)
+    pos = (torch.cumsum(F.one_hot(e_flat, n_experts), dim=0) - 1).gather(1, e_flat[:, None])[:, 0]
+    keep = pos < cap
+    return keep, torch.where(keep, e_flat * cap + pos, n_experts * cap)
+
+
+def _expert_ids(case, n_experts, n_assign, k=8, seed=0):
+    """(n_assign // k, k) expert ids. "zipf": k distinct experts a token,
+    drawn with Zipf(1.2) weights, so the first experts overflow; "one": every
+    assignment to expert 0; "ties": every token picks the same k experts in
+    the same order, so each expert's assignments tie in all but token order."""
+    g = torch.Generator().manual_seed(seed)
+    t = n_assign // k
+    if case == "one":
+        return torch.zeros(t, k, dtype=torch.long)
+    if case == "ties":
+        return torch.randperm(n_experts, generator=g)[:k].expand(t, k).clone()
+    zipf = 1.0 / torch.arange(1, n_experts + 1, dtype=torch.float64) ** 1.2
+    ids = torch.multinomial(zipf.expand(t, n_experts), k, generator=g)
+    return torch.randperm(n_experts, generator=g)[ids]
+
+
+@pytest.mark.parametrize("case,factor", [("zipf", 1.25), ("zipf", 0.5), ("zipf", 16.0),
+                                         ("one", 1.25), ("ties", 1.25)])
+@pytest.mark.parametrize("n_assign", [256, 16_384])
+@pytest.mark.parametrize("n_experts", [32, 64])
+def test_dispatch_matches_one_hot_cumsum(n_experts, n_assign, case, factor):
+    """``dispatch`` returns the one-hot cumsum's (keep, dest) exactly, drops
+    (factor 0.5 and 1.25) and no drops (16) alike, and its kept slots are
+    unique and token-major within each expert."""
+    idx = _expert_ids(case, n_experts, n_assign)
+    cap = max(8, -(-int(n_assign / n_experts * factor) // 8) * 8)
+    keep, dest = M.dispatch(idx, n_experts, cap)
+    want_keep, want_dest = _dispatch_by_cumsum(idx, n_experts, cap)
+    assert torch.equal(keep, want_keep) and torch.equal(dest, want_dest)
+    assert bool((~keep).any()) == (case != "zipf" or factor < 16), "drops as the case intends"
+    kept = dest[keep]
+    assert len(torch.unique(kept)) == len(kept)
+    src = M.slot_sources(dest, n_experts * cap)
+    filled = src < n_assign
+    assert torch.equal(dest[src[filled]], torch.arange(n_experts * cap)[filled])
+    slot = torch.arange(n_experts * cap)
+    assert (src[filled][1:] > src[filled][:-1])[(slot[filled] % cap)[1:] > 0].all()
+
+
+def _moe_local_by_index(x, p, cfg):
+    """``moe_local``'s single-rank math with the gathers it had before
+    ``_GatherRows``: autograd differentiates ``x_pad[buf]`` and the masked
+    ``y[dest]`` itself, with an accumulating ``index_put``."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_topk
+    t = b * s
+    xf = x.reshape(t, d)
+    w, idx, aux = M.route(xf, p, cfg)
+    cap = M._capacity(t, cfg)
+    keep, dest = M.dispatch(idx, e, cap)
+    token = torch.arange(t * k) // k
+    buf = torch.full((e * cap + 1,), t, dtype=torch.long).scatter(0, dest, token)[:e * cap]
+    x_pad = torch.cat([xf, xf.new_zeros((1, d))], dim=0)
+    xg = x_pad[buf].reshape(e, cap, d)
+    h = F.silu(torch.bmm(xg, p["w_gate"])) * torch.bmm(xg, p["w_up"])
+    y = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
+    out_tk = y[torch.where(keep, dest, 0)]
+    out_tk = torch.where(keep[:, None], out_tk, out_tk.new_zeros(()))
+    return (out_tk.reshape(t, k, d) * w[..., None]).sum(dim=1).reshape(b, s, d), aux
+
+
+def _moe_grads(fn, x, p, cfg, seed=3):
+    """Gradients in x and the four MoE weights of <fn's output, a fixed
+    random cotangent> + lb + z."""
+    leaves = {"x": _t(x).requires_grad_(), **{k: _t(v).requires_grad_() for k, v in p.items()}}
+    out, aux = fn(leaves["x"], {k: v for k, v in leaves.items() if k != "x"}, cfg)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(seed))
+    ((out * cot).sum() + aux["lb"] + aux["z"]).backward()
+    return {k: v.grad for k, v in leaves.items()}
+
+
+@pytest.mark.parametrize("experts", [(4, 2), (32, 8)], ids=["E4-k2", "E32-k8"])
+@pytest.mark.parametrize("factor,skew", [(16.0, False), (1.25, True)],
+                         ids=["drop-free", "published-1.25-drops"])
+def test_moe_local_grads_match_index_gathers(factor, skew, experts):
+    """``moe_local``'s gradients in x, the router and the three expert
+    weights equal autograd's through the indexing gathers, within the
+    parity tests' 2e-5."""
+    _, cfg = _cfgs("olmoe-1b-7b", moe_capacity_factor=factor)
+    cfg = dataclasses.replace(cfg, moe_experts=experts[0], moe_topk=experts[1])
+    x, p = _moe_inputs(cfg, skew)
+    got = _moe_grads(M.moe_local, x, p, cfg)
+    want = _moe_grads(_moe_local_by_index, x, p, cfg)
+    for k in want:
+        assert got[k].abs().max() > 0, k
+        _close(got[k], want[k].numpy())
+
+
+@pytest.mark.parametrize("use", ["dispatch", "combine"])
+def test_gather_rows_gradcheck(use):
+    """float64 ``gradcheck`` of ``_GatherRows`` as ``moe_local`` uses it, on
+    6 tokens top-2 over 3 experts of capacity 3 (four assignments drop, one
+    slot stays empty): token rows into the buffer (the backward sums each
+    token's k slots) and buffer rows back to the assignments."""
+    idx = torch.tensor([[0, 1], [0, 1], [1, 0], [0, 1], [1, 2], [0, 2]])
+    e, k, cap = 3, 2, 3
+    keep, dest = M.dispatch(idx, e, cap)
+    src = M.slot_sources(dest, e * cap)
+    assert (~keep).sum() == 4 and (src == idx.numel()).sum() == 1
+    g = torch.Generator().manual_seed(0)
+    if use == "dispatch":
+        leaf, index, inverse, group = torch.randn(6, 3, generator=g), src // k, dest, k
+    else:
+        leaf, index, inverse, group = torch.randn(e * cap, 3, generator=g), dest, src, 1
+    leaf = leaf.double().requires_grad_()
+    assert torch.autograd.gradcheck(lambda v: M._GatherRows.apply(v, index, inverse, group),
+                                    (leaf,))
+
+
+class _OpLog(TorchDispatchMode):
+    """Every aten op dispatched under it, with whether an index_put
+    accumulates."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        if name in ("index_put", "index_put_", "_index_put_impl_"):
+            if kwargs.get("accumulate", len(args) > 3 and args[3]):
+                name += "(accumulate)"
+        self.ops.append(name)
+        return func(*args, **kwargs)
+
+
+ACCUMULATING = {"index_put(accumulate)", "index_put_(accumulate)",
+                "_index_put_impl_(accumulate)", "index_add", "index_add_", "scatter_add",
+                "scatter_add_", "scatter_reduce", "scatter_reduce_"}
+
+
+def test_moe_dispatch_runs_no_accumulating_or_syncing_op():
+    """Under an op log on the CPU: ``moe_local``'s backward runs no
+    accumulating scatter (the indexing gathers' backward does, which shows
+    the log sees it); ``dispatch`` runs nothing that syncs the host on the
+    card; the no-grad forward at olmoe's decode shape (T 32, E 64, k 8)
+    dispatches no more ops than the one-hot cumsum's 67."""
+    _, cfg = _cfgs("olmoe-1b-7b", moe_capacity_factor=1.25)
+    x, p = _moe_inputs(cfg, True)
+    for fn, accumulates in ((M.moe_local, False), (_moe_local_by_index, True)):
+        leaves = {k: _t(v).requires_grad_() for k, v in p.items()}
+        out, aux = fn(_t(x).requires_grad_(), leaves, cfg)
+        with _OpLog() as log:
+            (out.square().sum() + aux["lb"]).backward()
+        assert "bmm" in log.ops
+        assert bool(ACCUMULATING & set(log.ops)) == accumulates, sorted(set(log.ops))
+
+    with _OpLog() as log:
+        M.dispatch(_expert_ids("zipf", 64, 16_384), 64, 320)
+    assert not {"_local_scalar_dense", "item", "nonzero", "bincount",
+                "masked_select"} & set(log.ops), log.ops
+
+    cfg = dataclasses.replace(cfg, moe_experts=64, moe_topk=8)
+    pd = {k: _t(v) for k, v in _moe_inputs(cfg, False)[1].items()}
+    xd = torch.randn(32, 1, cfg.d_model, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad(), _OpLog() as log:
+        M.moe_local(xd, pd, cfg)
+    assert len(log.ops) <= 67, len(log.ops)
 
 
 # ---------------------------------------------------------------------------
