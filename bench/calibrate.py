@@ -44,8 +44,8 @@ def main(argv=None) -> None:
     import torch
 
     import serve
-    from model import draw_params, port_config
-    from reference import judge
+    from model import port_config
+    from reference import family, judge
 
     common.card_check(torch, 1)
     if args.sample_tokens:
@@ -58,7 +58,7 @@ def main(argv=None) -> None:
     traffic = common.load_module("traffic", cell["traffic_kind"])
     rows = []
     for n, seed in enumerate(args.seeds):
-        params = draw_params(cfg, seed, "cuda")
+        params = family(conf).draw_params(conf["port"], seed, "cuda")
         engine = serve.engine_for(cfg, params, cell["engine"], "cuda")
         work = traffic.generate(cell["traffic_params"], seed, args.seconds, cfg.vocab)
         tw = common.TraceWindow(torch, False, 0.0)
@@ -88,17 +88,16 @@ def train_seed(cell: dict, conf: dict, seed: int, control: bool) -> dict:
     import torch
 
     import train
-    from model import draw_params, port_config
-    from reference import judge, train_ref
+    from reference import family, judge, train_ref
 
     t0 = time.perf_counter()
     params, state, step, feed, prog = train.build(cell, conf, seed, "cuda")
     del params, state, step
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    weights = draw_params(port_config(conf), seed, "cuda")
+    weights = family(conf).draw_params(conf["port"], seed, "cuda")
     batches = [feed(k) for k in range(cell["checked_steps"])]
-    args = (weights, conf["port"], batches, cell["optimizer"], cell["microbatches"])
+    args = (weights, conf, batches, cell["optimizer"], cell["microbatches"])
     ref = train_ref.run_steps(*args)
     t2 = time.perf_counter()
     row = {"seed": seed, "program_s": t1 - t0, "reference_s": t2 - t1,
@@ -107,8 +106,8 @@ def train_seed(cell: dict, conf: dict, seed: int, control: bool) -> dict:
     if control:
         sides["control"] = train_ref.run_steps(*args, precision="fp8")
         half = [{k: v[: v.shape[0] // 2] for k, v in b.items()} for b in batches]
-        sides["half_batch"] = train_ref.run_steps(weights, conf["port"], half,
-                                                  cell["optimizer"], cell["microbatches"])
+        sides["half_batch"] = train_ref.run_steps(weights, conf, half, cell["optimizer"],
+                                                  cell["microbatches"])
     for side, got in sides.items():
         nums = judge.train_numbers(got, ref)
         row[side] = {k: nums[k] for k in ("loss_gap", "first_grad_gap", "change_gap")}

@@ -27,11 +27,17 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
 # ------------------------------------------------------------------ files
 def load_json(kind: str, name: str) -> dict:
     """``bench/<kind>/<name>.json``: a cell (``workloads``) or a
-    configuration (``configs``)."""
+    configuration (``configs``). A configuration names its model family
+    (``"reference"``), by which ``reference/`` and ``counts/`` find its
+    modules; there is no default."""
     path = BENCH / kind / f"{name}.json"
     if not path.is_file():
         raise FileNotFoundError(f"no {kind} file named {name!r} ({path})")
-    return json.loads(path.read_text())
+    body = json.loads(path.read_text())
+    if kind == "configs" and "reference" not in body:
+        raise KeyError(f"{path} names no model family: it needs a top-level \"reference\" key "
+                       "(bench/reference/<family>.py)")
+    return body
 
 
 def load_module(kind: str, name: str):

@@ -1,6 +1,7 @@
 """The train step (``launch/steps.py``, ``optim/adamw.py``): its model
-FLOPs (``counts.train_step_flops``: 6 x active parameters x tokens plus
-causal attention) over the measured step time at 989 TFLOP/s."""
+FLOPs (the configuration's family's ``train_step_flops`` in ``counts/``:
+6 x active parameters x tokens plus causal attention) over the measured
+step time at 989 TFLOP/s."""
 import counts
 
 NAME, UNIT, SOURCE = "mfu.train", "%", "program_span"
@@ -13,4 +14,5 @@ def read(run):
         return None
     sz, b, s = run["conf"]["port"], run["batch"], run["seq"]
     step_s = run["spans"].total["train_step"] / n
-    return 100.0 * counts.train_step_flops(sz, b, s) / step_s / counts.PEAK_FLOPS
+    flops = counts.family(run["conf"]).train_step_flops(sz, b, s)
+    return 100.0 * flops / step_s / counts.PEAK_FLOPS

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import moe_lm
+from . import family
+from .plain import no_tf32
 
 
 def check(value, limit, held: bool | None = None) -> dict:
@@ -55,12 +56,13 @@ def served_gaps(params: dict, conf: dict, picked: list, control: bool = False) -
     """Each served token's gap (``program``) over the sampled requests and,
     with ``control``, at the same positions the gap of the token the float8
     reference puts first (``control``)."""
-    moe_lm.no_tf32()
-    ref = moe_lm.served_logits(params, conf["port"], _seqs(picked))
+    no_tf32()
+    fam = family(conf)
+    ref = fam.served_logits(params, conf["port"], _seqs(picked))
     out = {"program": torch.cat([_gaps(r, torch.tensor(s, device=r.device))
                                  for r, (_, s, _) in zip(ref, picked)])}
     if control:
-        low = moe_lm.served_logits(params, conf["port"], _seqs(picked), precision="fp8")
+        low = fam.served_logits(params, conf["port"], _seqs(picked), precision="fp8")
         out["control"] = torch.cat([_gaps(r, lw.argmax(-1)) for r, lw in zip(ref, low)])
     return out
 
@@ -114,8 +116,7 @@ def train_numbers(prog: dict, ref: dict) -> dict:
 def trained(params: dict, conf: dict, cell: dict, batches: list, prog: dict) -> dict:
     from . import train_ref
 
-    ref = train_ref.run_steps(params, conf["port"], batches, cell["optimizer"],
-                              cell["microbatches"])
+    ref = train_ref.run_steps(params, conf, batches, cell["optimizer"], cell["microbatches"])
     got = train_numbers(prog, ref)
     print(f"bench: reference over {len(batches)} steps: losses {ref['losses']} against "
           f"{prog['losses']}; leaves left out of the change: {got['left_out']}")

@@ -1,98 +1,72 @@
-"""Plain PyTorch reference of the attention + MoE language model the
-benchmark's configurations describe, in float32 with TF32 off.
+"""Plain PyTorch reference of the attention + MoE language model family
+(``"reference": "moe_lm"``): every layer one attention + MoE block, no
+shared expert, in float32 with TF32 off.
 
 It follows the program's equations, not the published models' where the
 two part (each configuration file lists the departures): pre-norm blocks
-with RMSNorm as ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, per-head
-q/k RMSNorm, half-split RoPE, causal GQA attention, a top-k router whose
-weights are renormalised over the k chosen, and the capacity-bounded
-dispatch: an expert keeps at most ``cap`` of a call's assignments, counted
-in token-major order, ``cap = max(8, ceil8(int(T * k / E * factor)))``.
+with ``plain.rmsnorm``, per-head q/k RMSNorm, half-split RoPE, causal GQA
+attention, a top-k router whose weights are renormalised over the k
+chosen, and the capacity-bounded dispatch: an expert keeps at most ``cap``
+of a call's assignments, counted in token-major order,
+``cap = max(8, ceil8(int(T * k / E * factor)))``.
 
-It imports nothing of the program. It reads a configuration file's
-``port`` sizes and the weights the benchmark drew (the program's tree
-layout), upcasting them a layer at a time.
-
-``Matmul`` is the one place products are formed; ``Matmul("fp8")``
-rounds both operands of every projection, expert and head product to
-float8 e4m3 (a scale per tensor) before the float32 product: the control
-that stands in for a program computed a precision below bfloat16.
+It imports nothing of the program. It draws the weights from the seed into
+the program's tree layout (``draw_params``), and reads a configuration
+file's ``port`` sizes and those weights, upcasting them a layer at a time.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
-E4M3_MAX = 448.0
-
-
-def no_tf32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+from .plain import Matmul, causal_attention, rmsnorm, rope
 
 
-def fp8_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` through float8 e4m3 with one scale for the tensor, back in f32."""
-    scale = t.abs().amax().clamp_min(1e-30) / E4M3_MAX
-    return (t / scale).to(torch.float8_e4m3fn).float() * scale
+def draw_params(sz: dict, seed: int, device) -> dict:
+    """The program's parameter tree (stacked over blocks, ``transformer``'s
+    layout) for the ``port`` sizes ``sz``, drawn from ``seed`` on ``device``
+    in a few large draws: matrices N(0, 1) * fan_in**-0.5 in the config
+    dtype, the router in float32, norm scales (used as ``1 + scale``)
+    N(0, 1) * 0.1 in float32."""
+    if [dict(b) for b in sz["block"]] != [{"kind": "attn", "ffn": "moe"}]:
+        raise ValueError(f"moe_lm draws one attention + MoE layer spec, not {sz['block']}")
+    g = torch.Generator(device=device)
+    g.manual_seed(seed % (2 ** 63))
+    dt = getattr(torch, sz["dtype"])
+    n, d, h, kv = sz["n_layers"], sz["d_model"], sz["n_heads"], sz["n_kv_heads"]
+    hd = sz["head_dim"]
+    e, f = sz["moe_experts"], sz["moe_d_ff"]
+
+    def mat(shape, fan_in, dtype=dt):
+        x = torch.randn(shape, generator=g, device=device, dtype=dtype)
+        return x.mul_(fan_in ** -0.5)
+
+    def norm(shape):
+        return torch.randn(shape, generator=g, device=device, dtype=torch.float32).mul_(0.1)
+
+    attn = {"wq": mat((n, d, h * hd), d), "wk": mat((n, d, kv * hd), d),
+            "wv": mat((n, d, kv * hd), d), "wo": mat((n, h * hd, d), h * hd)}
+    if sz["qk_norm"]:
+        attn["q_norm"], attn["k_norm"] = norm((n, hd)), norm((n, hd))
+    block = {"norm": norm((n, d)), "attn": attn, "ffn_norm": norm((n, d)),
+             "moe": {"router": mat((n, d, e), d, torch.float32),
+                     "w_gate": mat((n, e, d, f), d), "w_up": mat((n, e, d, f), d),
+                     "w_down": mat((n, e, f, d), f)}}
+    params = {"embed": mat((sz["vocab"], d), d), "final_norm": norm((d,)), "blocks": (block,)}
+    if not sz["tie_embeddings"]:
+        params["lm_head"] = mat((d, sz["vocab"]), d)
+    return params
 
 
-class Matmul:
-    def __init__(self, precision: str = "fp32"):
-        if precision not in ("fp32", "fp8"):
-            raise ValueError(precision)
-        self.fp8 = precision == "fp8"
-
-    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.fp8:
-            a, b = fp8_round(a), fp8_round(b)
-        return a @ b
-
-
-def rmsnorm(x, scale, eps):
-    return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps) * (1.0 + scale)
-
-
-def rope(x, pos, theta):
-    """x (..., S, H, hd), pos (S,): the first and second halves of hd pair up."""
-    hd = x.shape[-1]
-    inv = 1.0 / theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd)
-    ang = pos.float()[:, None] * inv
-    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]
-    x1, x2 = x[..., : hd // 2], x[..., hd // 2:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def _attend_rows(q, k, v, q0: int):
-    """Causal attention of the queries at q0.. (B, c, H, hd) over keys
-    0..q0+c-1, GQA by repeating K/V heads."""
-    b, c, h, hd = q.shape
-    rep = h // k.shape[2]
-    n = q0 + c
-    kk = k[:, :n].repeat_interleave(rep, dim=2)
-    vv = v[:, :n].repeat_interleave(rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, kk) * hd ** -0.5
-    qi = torch.arange(q0, n, device=q.device)[:, None]
-    ki = torch.arange(n, device=q.device)[None, :]
-    s = s.masked_fill(ki > qi, -math.inf)
-    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vv)
-
-
-def causal_attention(q, k, v, chunk: int = 512):
-    """q (B, S, H, hd), k/v (B, S, KV, hd), query chunks under a checkpoint
-    when a gradient is recorded, so no (S, S) score of the whole sequence
-    is held."""
-    outs = []
-    for q0 in range(0, q.shape[1], chunk):
-        qc = q[:, q0:q0 + chunk]
-        if torch.is_grad_enabled():
-            outs.append(checkpoint(_attend_rows, qc, k, v, q0, use_reentrant=False))
-        else:
-            outs.append(_attend_rows(qc, k, v, q0))
-    return torch.cat(outs, dim=1)
+def small(port: dict) -> dict:
+    """``port`` at the CPU tests' size: the same equations (MoE, GQA,
+    qk-norm, tying, capacity factor) at widths a test run holds, float32."""
+    p = dict(port)
+    kv_ratio = p["n_heads"] // p["n_kv_heads"]
+    p.update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4 // kv_ratio, head_dim=16,
+             d_ff=32, moe_d_ff=32, moe_experts=8, moe_topk=2, vocab=512, max_seq=4096,
+             dtype="float32")
+    return p
 
 
 def capacity(tokens: int, topk: int, experts: int, factor: float) -> int:
@@ -139,8 +113,9 @@ def moe(x, p, sz: dict, mm: Matmul, prefix: int | None = None):
     return y, lb, z
 
 
-def layer(x, p, sz: dict, mm: Matmul, pos, prefix=None):
-    """One block on x (B, S, d). Returns (x, lb, z)."""
+def layer(x, p, l: int, sz: dict, mm: Matmul, pos, prefix=None):
+    """Layer ``l`` (every layer alike) on x (B, S, d), its weights ``p``.
+    Returns (x, lb, z)."""
     b, s, d = x.shape
     h_, kv, hd = sz["n_heads"], sz["n_kv_heads"], sz["head_dim"]
     eps = sz["norm_eps"]
@@ -160,10 +135,25 @@ def layer(x, p, sz: dict, mm: Matmul, pos, prefix=None):
 
 
 def layer_weights(params: dict, l: int) -> dict:
-    """Block ``l`` of the stacked tree, in float32."""
+    """Layer ``l``'s weights: block ``l`` of the stacked tree, in float32."""
     def pick(t):
         return {k: pick(v) for k, v in t.items()} if isinstance(t, dict) else t[l].float()
     return pick(params["blocks"][0])
+
+
+def layer_leaves(w: dict, l: int, sz: dict) -> dict:
+    """Layer ``l``'s weights out of the flat float32 leaves ``w`` (paths of
+    the program's tree): block l of the stacked leaves under "blocks/0/"."""
+    out: dict = {}
+    for path, t in w.items():
+        if not path.startswith("blocks/0/"):
+            continue
+        node = out
+        keys = path.split("/")[2:]
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = t[l]
+    return out
 
 
 def head(params: dict, sz: dict) -> torch.Tensor:
@@ -184,7 +174,7 @@ def served_logits(params: dict, sz: dict, seqs: list[tuple[list[int], int]],
     pos = [torch.arange(len(t), device=dev) for t, _ in seqs]
     for l in range(sz["n_layers"]):
         w = layer_weights(params, l)
-        xs = [layer(x, w, sz, mm, p, prefix=n)[0] for x, p, (_, n) in zip(xs, pos, seqs)]
+        xs = [layer(x, w, l, sz, mm, p, prefix=n)[0] for x, p, (_, n) in zip(xs, pos, seqs)]
         del w
     w_out = head(params, sz)
     fn = params["final_norm"].float()

@@ -2,14 +2,15 @@
 its gradient and AdamW, in float32 with TF32 off, over the same weights
 and batches the program got.
 
-The loss follows the program's equations (``moe_lm``'s blocks, the
-capacity rule over each microbatch's tokens, a mean cross-entropy over
-every position plus the load-balance and router z terms summed over the
-layers); each microbatch's gradient is averaged, clipped to a global norm
-of 1.0, and AdamW (b1 0.9, b2 0.95, eps 1e-8, decay on every leaf of two
-or more dims) steps at the cell's cosine schedule, from a float32 master
-copy. Each block, each attention chunk and each loss chunk runs under a
-checkpoint, so the activations of one block at a time are held.
+The loss follows the program's equations (the layers of the configuration's
+family, ``reference/<family>.py``, each called with its index; a mean
+cross-entropy over every position plus the load-balance and router z terms
+summed over the layers); each microbatch's gradient is averaged, clipped to
+a global norm of 1.0, and AdamW (b1 0.9, b2 0.95, eps 1e-8, decay on every
+leaf of two or more dims) steps at the cell's cosine schedule, from a
+float32 master copy. Each layer, each attention chunk and each loss chunk
+runs under a checkpoint, so the activations of one layer at a time are
+held.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import moe_lm
+from . import family
+from .plain import Matmul, no_tf32, rmsnorm
 
 B1, B2, EPS, CLIP = 0.9, 0.95, 1e-8, 1.0
 
@@ -46,32 +48,18 @@ def lr_at(step: int, opt: dict) -> float:
     return peak * (0.1 + 0.9 * 0.5 * (1 + math.cos(math.pi * prog)))
 
 
-def _layer_slice(w: dict, l: int, n: int) -> dict:
-    """Block l of the stacked float32 leaves under "blocks/0/"."""
-    out: dict = {}
-    for path, t in w.items():
-        if not path.startswith("blocks/0/"):
-            continue
-        node = out
-        keys = path.split("/")[2:]
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = t[l]
-    return out
-
-
-def loss(w: dict, sz: dict, tokens, labels, mm, lb_coef: float, z_coef: float):
+def loss(w: dict, fam, sz: dict, tokens, labels, mm, lb_coef: float, z_coef: float):
     """The program's training loss on float32 leaves ``w`` (paths of the
-    program's tree)."""
+    program's tree), with the layers of the family module ``fam``."""
     b, s = tokens.shape
     x = w["embed"][tokens]
     pos = torch.arange(s, device=tokens.device)
     lb = z = torch.zeros((), device=tokens.device)
     for l in range(sz["n_layers"]):
-        p = _layer_slice(w, l, sz["n_layers"])
-        x, lb_l, z_l = checkpoint(moe_lm.layer, x, p, sz, mm, pos, use_reentrant=False)
+        p = fam.layer_leaves(w, l, sz)
+        x, lb_l, z_l = checkpoint(fam.layer, x, p, l, sz, mm, pos, use_reentrant=False)
         lb, z = lb + lb_l, z + z_l
-    x = moe_lm.rmsnorm(x, w["final_norm"], sz["norm_eps"])
+    x = rmsnorm(x, w["final_norm"], sz["norm_eps"])
     head = w["embed"].T if sz["tie_embeddings"] else w["lm_head"]
 
     def chunk(xc, lc):
@@ -84,14 +72,15 @@ def loss(w: dict, sz: dict, tokens, labels, mm, lb_coef: float, z_coef: float):
     return ce + lb_coef * lb + z_coef * z
 
 
-def run_steps(params: dict, sz: dict, batches: list, opt: dict, microbatches: int,
+def run_steps(params: dict, conf: dict, batches: list, opt: dict, microbatches: int,
               precision: str = "fp32") -> dict:
     """``len(batches)`` steps from the weights ``params`` (the program's
-    tree, any dtype; read in float32). Returns each step's loss, the norm
-    of each leaf's clipped first gradient, and the norm of each leaf's
-    change over all the steps."""
-    moe_lm.no_tf32()
-    mm = moe_lm.Matmul(precision)
+    tree, any dtype; read in float32) of the configuration ``conf``.
+    Returns each step's loss, the norm of each leaf's clipped first
+    gradient, and the norm of each leaf's change over all the steps."""
+    no_tf32()
+    fam, sz = family(conf), conf["port"]
+    mm = Matmul(precision)
     master = {k: v.detach().float().clone() for k, v in flat(params).items()}
     start = {k: v.clone() for k, v in master.items()}
     m = {k: torch.zeros_like(v) for k, v in master.items()}
@@ -104,7 +93,7 @@ def run_steps(params: dict, sz: dict, batches: list, opt: dict, microbatches: in
         for i in range(microbatches):
             sl = slice(i * rows, (i + 1) * rows)
             w = {k: t.clone().requires_grad_() for k, t in master.items()}
-            out = loss(w, sz, bt["tokens"][sl], bt["labels"][sl], mm, opt["lb_coef"],
+            out = loss(w, fam, sz, bt["tokens"][sl], bt["labels"][sl], mm, opt["lb_coef"],
                        opt["z_coef"])
             gs = torch.autograd.grad(out, list(w.values()), allow_unused=True)
             for k, g in zip(w, gs):

@@ -22,7 +22,7 @@ import math
 import time
 
 from common import Spans, TraceWindow, load_module, percentile
-from model import draw_params, port_config
+from model import port_config
 
 
 class Track:
@@ -160,10 +160,10 @@ def run(cell: dict, conf: dict, seed: int, seconds: float, trace: bool, device: 
     break the timed path underneath."""
     import torch
 
-    from reference import judge
+    from reference import family, judge
 
     cfg = port_config(conf)
-    params = draw_params(cfg, seed, device)
+    params = family(conf).draw_params(conf["port"], seed, device)
     engine = engine_for(cfg, params, cell["engine"], device)
     traffic = load_module("traffic", cell["traffic_kind"])
     work = traffic.generate(cell["traffic_params"], seed, seconds, cfg.vocab)

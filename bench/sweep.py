@@ -49,11 +49,12 @@ def main(argv=None) -> None:
     common.program_path()
     import torch
 
-    from model import draw_params, port_config
+    from model import port_config
+    from reference import family
 
     common.card_check(torch, 1)
     cfg = port_config(conf)
-    params = draw_params(cfg, args.seed, "cuda")
+    params = family(conf).draw_params(conf["port"], args.seed, "cuda")
     cell = {**cell, "engine": {**cell["engine"], "num_sets": args.num_sets},
             "drain_s": args.drain}
     print(f"sweep: {args.workload} on {torch.cuda.get_device_name(0)}, power limit "

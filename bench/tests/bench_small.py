@@ -13,18 +13,14 @@ for p in (str(BENCH), str(BENCH.parent / "src")):
         sys.path.insert(0, p)
 
 import common  # noqa: E402
+from reference import family  # noqa: E402
 
 
 def small_conf(conf: dict) -> dict:
-    """The configuration file's ``port`` section at the CPU tests' size: the
-    same equations (MoE, GQA, qk-norm, tying, capacity factor) at widths a
+    """The configuration with its ``port`` section at the CPU tests' size,
+    as its family's ``small`` shrinks it: the same equations at widths a
     test run holds, float32."""
-    p = dict(conf["port"])
-    kv_ratio = p["n_heads"] // p["n_kv_heads"]
-    p.update(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4 // kv_ratio, head_dim=16,
-             d_ff=32, moe_d_ff=32, moe_experts=8, moe_topk=2, vocab=512, max_seq=4096,
-             dtype="float32")
-    return {**conf, "port": p}
+    return {**conf, "port": family(conf).small(conf["port"])}
 
 
 def small_cell(name: str) -> tuple[dict, dict]:

@@ -11,12 +11,17 @@ import pytest
 
 from bench_small import BENCH
 import common
+import counts
+from reference import family
 
 SPEC = json.loads((BENCH.parent / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in SPEC["workloads"]]
 PER_LAYER = [m["name"] for m in SPEC["per_layer"]]
+# a published key and the port key it maps to
+HELD = {"hidden_size": "d_model", "num_hidden_layers": "n_layers", "vocab_size": "vocab",
+        "num_experts_per_tok": "moe_topk"}
 
 
 def test_top_level_keys_and_limits():
@@ -60,10 +65,23 @@ def test_configuration_files(conf):
     for key in ("published", "assumed", "deployment", "departures", "port"):
         assert body[key]
     pub, port = body["published"], body["port"]
-    assert port["d_model"] == pub["hidden_size"] and port["n_layers"] == pub[
-        "num_hidden_layers"] and port["vocab"] == pub["vocab_size"]
-    assert port["moe_topk"] == pub["num_experts_per_tok"]
+    for key, port_key in HELD.items():      # a cut (depth, vocabulary) is listed in reduced
+        if key in pub and not {key, port_key} & set(body["reduced"]):
+            assert port[port_key] == pub[key], key
     assert any(w["config"] == conf["name"] for w in SPEC["workloads"])
+
+
+@pytest.mark.parametrize("conf", SPEC["configs"], ids=lambda c: c["name"])
+def test_configuration_names_its_family(conf):
+    """The family a configuration names has its reference and its counts,
+    with the interface the harness calls."""
+    body = common.load_json("configs", conf["name"])
+    fam = family(body)
+    for name in ("draw_params", "served_logits", "layer", "layer_leaves", "small"):
+        assert callable(getattr(fam, name)), name
+    assert callable(counts.family(body).train_step_flops)
+    small = fam.small(body["port"])
+    assert small["dtype"] == "float32" and small["n_layers"] < body["port"]["n_layers"]
 
 
 @pytest.mark.parametrize("name", [m["name"] for m in SPEC["end_to_end"]] + PER_LAYER)

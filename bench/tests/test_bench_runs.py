@@ -17,6 +17,7 @@ from bench_small import BENCH, run_small, small_cell
 import common
 import model
 import serve
+from reference import family
 
 @pytest.fixture(autouse=True)
 def two_threads():
@@ -112,7 +113,7 @@ def test_serving_control_fails(name):
     cfg = model.port_config(conf)
     traffic = common.load_module("traffic", cell["traffic_kind"])
     for seed in (11, 12, 13):
-        params = model.draw_params(cfg, seed, "cpu")
+        params = family(conf).draw_params(conf["port"], seed, "cpu")
         engine = serve.engine_for(cfg, params, cell["engine"], "cpu")
         work = traffic.generate(cell["traffic_params"], seed, 1.0, cfg.vocab)
         w = serve.drive(engine, work, 1.0, cell, common.Spans(torch),
@@ -133,11 +134,11 @@ def test_training_control_fails():
     cfg = model.port_config(conf)
     traffic = common.load_module("traffic", cell["traffic_kind"])
     for seed in (11, 12, 13):
-        params = model.draw_params(cfg, seed, "cpu")
+        params = family(conf).draw_params(conf["port"], seed, "cpu")
         batches = [{k: torch.from_numpy(v) for k, v in
                     traffic.batch(cell["traffic_params"], seed, k, cfg.vocab).items()}
                    for k in range(cell["checked_steps"])]
-        args = (params, conf["port"], batches, cell["optimizer"], cell["microbatches"])
+        args = (params, conf, batches, cell["optimizer"], cell["microbatches"])
         got = judge.train_numbers(train_ref.run_steps(*args, precision="fp8"),
                                   train_ref.run_steps(*args))
         assert any(got[k] > cell["check"][k] for k in cell["check"]), got

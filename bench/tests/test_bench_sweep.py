@@ -7,6 +7,7 @@ import torch
 
 from bench_small import small_cell
 import model
+from reference import family
 import sweep
 
 
@@ -16,8 +17,8 @@ def test_sweep_rate_reads_a_rate():
     n = torch.get_num_threads()
     torch.set_num_threads(2)
     try:
-        row = sweep.sweep_rate(cell, cfg, model.draw_params(cfg, 5, "cpu"), 10.0, 5, 1.0,
-                               "cpu")
+        row = sweep.sweep_rate(cell, cfg, family(conf).draw_params(conf["port"], 5, "cpu"),
+                               10.0, 5, 1.0, "cpu")
     finally:
         torch.set_num_threads(n)
     assert row["requests"] == 10 and row["steps"] > 0

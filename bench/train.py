@@ -22,7 +22,8 @@ import time
 import numpy as np
 
 from common import Spans, TraceWindow, load_module
-from model import draw_params, port_config
+from model import port_config
+from reference import family
 from reference.train_ref import B1, flat
 
 
@@ -44,7 +45,7 @@ def build(cell: dict, conf: dict, seed: int, device: str, fault=None):
         return {n: torch.from_numpy(np.ascontiguousarray(a)).to(device, non_blocking=True)
                 for n, a in b.items()}
 
-    params = draw_params(cfg, seed, device)
+    params = family(conf).draw_params(conf["port"], seed, device)
     start = {k: v.clone() for k, v in flat(params).items()}
     state = adamw_init(params)
     step = make_train_step(cfg, remat=True, peak_lr=opt["peak_lr"], warmup=opt["warmup"],
@@ -105,7 +106,7 @@ def run(cell: dict, conf: dict, seed: int, seconds: float, trace: bool, device: 
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    weights = draw_params(port_config(conf), seed, device)
+    weights = family(conf).draw_params(conf["port"], seed, device)
     checks = judge.trained(weights, conf, cell, [feed(k) for k in range(n_checked)], prog)
     print(f"bench: the reference took {time.perf_counter() - t_ref:.1f} s")
     return {"setup_s": setup_s, "window_s": window, "tokens": steps * rows * tp["seq"],
