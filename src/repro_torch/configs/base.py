@@ -56,6 +56,14 @@ class ModelConfig:
     # "tp": expert weights sharded over model d_ff, output psum — moves
     #       T x d instead of E x C x d per layer (§Perf hillclimb)
     moe_parallel: str = "ep"
+    # a shared expert (SwiGLU of this width) beside the routed ones, run on
+    # every token; 0 = none
+    moe_shared_d_ff: int = 0
+    # the experts a layer holds: ``moe_held_experts`` of the ``moe_experts``
+    # the router scores, from id ``moe_first_expert`` on (one rank's share
+    # under expert parallelism); 0 = all of them
+    moe_held_experts: int = 0
+    moe_first_expert: int = 0
 
     # SSM (mamba2)
     ssm_state: int = 0
@@ -73,6 +81,14 @@ class ModelConfig:
     act: str = "silu"                # silu | gelu
     tie_embeddings: bool = False
     embed_scale: bool = False        # multiply embeddings by sqrt(d_model) (gemma)
+    # Granite's multipliers: the embeddings times ``embedding_multiplier``,
+    # each sublayer's output times ``residual_multiplier`` before its
+    # residual add, attention scores times ``attention_multiplier`` (None:
+    # head_dim**-0.5) and the logits over ``logits_divisor``; 1.0 = none
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: float | None = None
+    logits_divisor: float = 1.0
     norm_eps: float = 1e-6
     max_seq: int = 32768
     dtype: str = "bfloat16"
@@ -98,6 +114,11 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    @property
+    def held_experts(self) -> int:
+        """Experts a MoE layer holds (``moe_held_experts``, 0 = all)."""
+        return self.moe_held_experts or self.moe_experts
 
     @property
     def has_attention(self) -> bool:
@@ -144,7 +165,8 @@ class ModelConfig:
                     per_block += d
             elif spec.ffn == "moe":
                 per_block += d + d * self.moe_experts    # norm + router
-                per_block += self.moe_experts * 3 * d * self.moe_d_ff
+                per_block += self.held_experts * 3 * d * self.moe_d_ff
+                per_block += 3 * d * self.moe_shared_d_ff
                 if self.post_norms:
                     per_block += d
         total += per_block * self.n_blocks
@@ -160,13 +182,15 @@ class ModelConfig:
         return total
 
     def active_param_count(self) -> int:
-        """Params touched per token (MoE: top-k experts only)."""
+        """Params touched per token (MoE: top-k experts only; of a layer
+        holding some of the experts, their expected share k * held / E)."""
         if self.moe_experts == 0:
             return self.param_count()
         full = self.param_count()
         n_moe = sum(1 for l in self.block if l.ffn == "moe") * self.n_blocks
-        inactive = n_moe * (self.moe_experts - self.moe_topk) * 3 * self.d_model * self.moe_d_ff
-        return full - inactive
+        expert = 3 * self.d_model * self.moe_d_ff
+        active = self.moe_topk * self.held_experts * expert // self.moe_experts
+        return full - n_moe * (self.held_experts * expert - active)
 
 
 @dataclass(frozen=True)

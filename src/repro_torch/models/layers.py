@@ -15,6 +15,7 @@ Conventions:
 """
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 
 import torch
@@ -30,6 +31,20 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import mesh_shape
 
 NEG_INF = -1e30
+
+
+def profiling() -> bool:
+    """Whether a profiler records: torch's process-wide flag, which every
+    profiler sets (one that follows all threads too), else this thread's."""
+    return (getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
+            or torch.autograd._profiler_enabled())
+
+
+def profiled(name: str):
+    """``record_function(name)`` while a profiler records, else a context
+    that does nothing: a range on the trace's timeline, and no op outside a
+    profiler."""
+    return torch.profiler.record_function(name) if profiling() else contextlib.nullcontext()
 
 
 # ---------------------------------------------------------------------------
@@ -208,6 +223,15 @@ def _attend(q, k, v, *, causal: bool, window: int, softcap: float, q_offset: int
                             q_offset=q_offset)
 
 
+def scale_queries(q, cfg: ModelConfig):
+    """q times ``cfg.attention_multiplier * head_dim**0.5`` where the config
+    has one, so that attention, which scales its scores by head_dim**-0.5
+    (the flash kernel's fixed scale), scales them by the multiplier."""
+    if cfg.attention_multiplier is None:
+        return q
+    return q * (cfg.attention_multiplier * cfg.head_dim ** 0.5)
+
+
 def head_split(mesh, n_heads: int, kv_heads: int) -> str | None:
     """How attention's heads go over ``model``: ``"kv"`` where it divides
     the KV heads (each rank whole GQA groups, query and KV heads cut
@@ -310,6 +334,7 @@ def multihead_attention(x, params, cfg: ModelConfig, *, positions,
     if cfg.rope_theta and kv_override is None:
         q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = scale_queries(q, cfg)
     attend = partial(_attend, causal=causal, window=window, softcap=cfg.attn_softcap,
                      q_offset=q_offset, dense_threshold=(cfg.attn_dense_threshold
                                                          if dense_threshold is None
@@ -412,7 +437,7 @@ def decode_cross_attention(x, params, cfg: ModelConfig, kv, mesh=None) -> torch.
     attends over its rows' slice of the keys with every head, and the
     slices meet in ``combine_partials``."""
     h, hd = cfg.n_heads, cfg.head_dim
-    q = split_heads(x @ params["wq"], h, hd)
+    q = scale_queries(split_heads(x @ params["wq"], h, hd), cfg)
 
     def attend(q, k, v, groups=()):
         lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)

@@ -17,6 +17,14 @@ the buffer, expert rows back to the assignments) have a backward that is a
 gather through the inverse map (``_GatherRows``), with no accumulating
 scatter.
 
+A layer may hold some of the experts (``cfg.held_experts`` from
+``cfg.moe_first_expert``, one rank's share under expert parallelism run
+without the exchange): the router, its top-k and the aux losses stay over
+all ``moe_experts``, and so does the capacity; the products run on the held
+experts' slots only, and an assignment to an expert the layer does not hold
+adds nothing, as a dropped one. A shared expert (``cfg.moe_shared_d_ff``)
+runs on every token beside them and is added to their output.
+
 Over a mesh, ``moe_ffn`` runs ``moe_local`` under ``local_map`` (JAX's
 ``shard_map``): expert parallelism ships each expert's rows to the rank
 that owns it with an all-to-all over ``data``; tensor parallelism sums the
@@ -35,21 +43,29 @@ from repro_torch.distributed.collectives import (experts_to_owners, pmean, psum,
 from repro_torch.distributed import sharding
 from repro_torch.distributed.sharding import P, placements, replicate, replicated, whole
 from repro_torch.launch.mesh import mesh_shape
-from .layers import init_normal
+from .layers import init_normal, mlp, profiled
 
 
 def init_moe(generator, cfg: ModelConfig, device=None) -> dict:
-    """The router in float32, the experts in the config dtype, with JAX's
-    layout and scales (N(0,1) * d**-0.5 in, * d_ff**-0.5 out)."""
-    d, e, f = cfg.d_model, cfg.moe_experts, cfg.moe_d_ff
+    """The router (over all ``moe_experts``) in float32, the held experts
+    and the shared expert (``"shared"``, where the config has one) in the
+    config dtype, with JAX's layout and scales (N(0,1) * d**-0.5 in,
+    * d_ff**-0.5 out)."""
+    d, e, f = cfg.d_model, cfg.held_experts, cfg.moe_d_ff
     dt = getattr(torch, cfg.dtype)
     s_in, s_out = d ** -0.5, f ** -0.5
-    return {
-        "router": init_normal((d, e), generator, device, s_in, torch.float32),
+    p = {
+        "router": init_normal((d, cfg.moe_experts), generator, device, s_in, torch.float32),
         "w_gate": init_normal((e, d, f), generator, device, s_in, dt),
         "w_up": init_normal((e, d, f), generator, device, s_in, dt),
         "w_down": init_normal((e, f, d), generator, device, s_out, dt),
     }
+    if cfg.moe_shared_d_ff:
+        fs = cfg.moe_shared_d_ff
+        p["shared"] = {"w_gate": init_normal((d, fs), generator, device, s_in, dt),
+                       "w_up": init_normal((d, fs), generator, device, s_in, dt),
+                       "w_down": init_normal((fs, d), generator, device, fs ** -0.5, dt)}
+    return p
 
 
 def _capacity(tokens: int, cfg: ModelConfig, factor: float | None = None) -> int:
@@ -152,28 +168,44 @@ def moe_local(x, params, cfg: ModelConfig, *, ep_group=None, tp_group=None, ep_s
     xf = x.reshape(t, d)
     w, idx, aux = route(xf, params, cfg, stats_group)
 
-    cap = _capacity(t, cfg, capacity_factor)
-    _, dest = dispatch(idx, e, cap)
-    src = slot_sources(dest, e * cap)
-    buf = src // k_top                                                # slot -> token, t where empty
+    with profiled("moe.routed"):
+        cap = _capacity(t, cfg, capacity_factor)
+        _, dest = dispatch(idx, e, cap)
+        src = slot_sources(dest, e * cap)
+        held = cfg.held_experts
+        if held != e:
+            # the held experts' slots; an assignment to another expert reads
+            # and writes the overflow slot, as a dropped one
+            lo = cfg.moe_first_expert * cap
+            src = src[lo:lo + held * cap]
+            dest = dest - lo
+            dest = torch.where((dest >= 0) & (dest < held * cap), dest, held * cap)
+        buf = src // k_top                                            # slot -> token, t where empty
 
-    xg = _gather_rows(xf, buf, dest, k_top).reshape(e, cap, d)        # (E, C, d)
-    ep = ep_group is not None and ep_size > 1
-    if ep:
-        xg = experts_to_owners(xg, ep_group, ep_size)                # (E/D, C*D, d)
-    act = F.silu if cfg.act == "silu" else (lambda v: F.gelu(v, approximate="tanh"))
-    h = act(torch.bmm(xg, params["w_gate"])) * torch.bmm(xg, params["w_up"])
-    y = torch.bmm(h, params["w_down"])
-    if ep:
-        y = rows_to_sources(y, ep_group, ep_size)                     # (E, C, d)
-    y = y.reshape(e * cap, d)
+        xg = _gather_rows(xf, buf, dest, k_top).reshape(held, cap, d)  # (E, C, d)
+        ep = ep_group is not None and ep_size > 1
+        if ep:
+            xg = experts_to_owners(xg, ep_group, ep_size)            # (E/D, C*D, d)
+        act = F.silu if cfg.act == "silu" else (lambda v: F.gelu(v, approximate="tanh"))
+        h = act(torch.bmm(xg, params["w_gate"])) * torch.bmm(xg, params["w_up"])
+        y = torch.bmm(h, params["w_down"])
+        if ep:
+            y = rows_to_sources(y, ep_group, ep_size)                 # (E, C, d)
+        y = y.reshape(held * cap, d)
 
-    out_tk = _gather_rows(y, dest, src)                               # (T*K, d), 0 if dropped
-    out = (out_tk.reshape(t, k_top, d) * w[..., None].to(y.dtype)).sum(dim=1)
-    if tp_group is not None:
-        # after the token combine: a (T, d) sum, not the (E, C, d) buffer's
-        out = psum(out, (tp_group,))
+        out_tk = _gather_rows(y, dest, src)                           # (T*K, d), 0 if dropped
+        out = (out_tk.reshape(t, k_top, d) * w[..., None].to(y.dtype)).sum(dim=1)
+        if tp_group is not None:
+            # after the token combine: a (T, d) sum, not the (E, C, d) buffer's
+            out = psum(out, (tp_group,))
     return out.reshape(b, s, d).to(x.dtype), aux
+
+
+def shared_expert(x, params, cfg: ModelConfig):
+    """The shared expert's SwiGLU (GeGLU under ``cfg.act`` "gelu") on every
+    token of x (B, S, d)."""
+    with profiled("moe.shared"):
+        return mlp(x, params, cfg.act)
 
 
 def _grad_placements(spec, mesh) -> list:
@@ -184,7 +216,18 @@ def _grad_placements(spec, mesh) -> list:
 
 def moe_ffn(x, params, cfg: ModelConfig, mesh=None, dp_axes: tuple[str, ...] | None = None,
             ep_axis: str = "data", tp_axis: str = "model"):
-    """MoE FFN. x: (B, S, d). Returns (y, {"lb", "z"}).
+    """MoE FFN. x: (B, S, d). Returns (y, {"lb", "z"}): the routed experts'
+    output (``routed_ffn``), plus the shared expert's where the config has
+    one."""
+    y, aux = routed_ffn(x, params, cfg, mesh, dp_axes, ep_axis, tp_axis)
+    if cfg.moe_shared_d_ff:
+        y = y + shared_expert(x, params["shared"], cfg)
+    return y, aux
+
+
+def routed_ffn(x, params, cfg: ModelConfig, mesh=None, dp_axes: tuple[str, ...] | None = None,
+               ep_axis: str = "data", tp_axis: str = "model"):
+    """The routed experts of the MoE FFN. x: (B, S, d). Returns (y, {"lb", "z"}).
 
     With a ``mesh`` (a ``DeviceMesh`` with named dims) it follows JAX's
     modes under ``local_map``: "tp" (``cfg.moe_parallel``) gives every rank
@@ -200,7 +243,8 @@ def moe_ffn(x, params, cfg: ModelConfig, mesh=None, dp_axes: tuple[str, ...] | N
         return moe_local(x, params, cfg)
     plain = not isinstance(x, DTensor)
     x = replicate(x, mesh)
-    params = {k: replicate(v, mesh) for k, v in params.items()}
+    keys = ("router", "w_gate", "w_up", "w_down")
+    params = {k: replicate(params[k], mesh) for k in keys}
     dp_axes = dp_axes or sharding.dp_axes(mesh)
     dp_n = 1
     for a in dp_axes:
@@ -208,7 +252,6 @@ def moe_ffn(x, params, cfg: ModelConfig, mesh=None, dp_axes: tuple[str, ...] | N
     n_all = 1
     for n in sizes.values():
         n_all *= n
-    keys = ("router", "w_gate", "w_up", "w_down")
     if x.shape[0] % dp_n != 0:
         # a batch too small to shard (single-sequence decode): every rank
         # runs the whole of it, as GSPMD's plain path

@@ -11,7 +11,8 @@ quadratic "attention" form, across chunks a recurrent state (B, H, N, hd),
 carried by a Python loop over chunks where JAX runs ``lax.scan``. The casts
 follow JAX: ``xs``, ``B``, ``C`` and ``dt`` (through softplus) in float32,
 ``y`` back in the input dtype before the gated rmsnorm, ``silu(z)`` taken in
-float32 and then cast.
+float32 and then cast. Under a profiler the layer is the range
+``ssm.mixer`` and its core the range ``ssm.scan``.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.distributed.collectives import group_size, psum
 from repro_torch.distributed.sharding import (P, PartitionSpec, cut_axes, dp_axes, dp_size,
                                               placements)
 from repro_torch.launch.mesh import mesh_shape
-from .layers import init_normal, rmsnorm
+from .layers import init_normal, profiled, rmsnorm
 
 
 def init_mamba(generator, cfg: ModelConfig, device=None) -> dict:
@@ -243,8 +244,10 @@ def _mixer(x, in_x, in_z, in_bc, in_dt, norm, out_proj, *w, n, hd, chunk, eps, g
     ``_scan``, the gate and the norm (``_gated_norm`` over ``groups``),
     ``out_proj``. Returns (out, final state)."""
     bc = _project_bc(x, in_bc, groups, part)
-    y, state = _scan(x @ in_x, bc, x @ in_dt, *w, n=n, hd=hd, chunk=chunk,
-                     initial_state=initial_state)
+    xr, dt_raw = x @ in_x, x @ in_dt
+    with profiled("ssm.scan"):
+        y, state = _scan(xr, bc, dt_raw, *w, n=n, hd=hd, chunk=chunk,
+                         initial_state=initial_state)
     return _gated_norm(y, x @ in_z, norm, eps=eps, dtype=x.dtype, groups=groups) @ out_proj, state
 
 
@@ -263,13 +266,14 @@ def mamba_chunked(x, params, cfg: ModelConfig, chunk: int = CHUNK,
     check_length(s, chunk)
     args = (x, *(params[k] for k in MIXER_PARAMS))
     mixer = partial(_mixer, n=cfg.ssm_state, hd=cfg.ssm_head_dim, chunk=chunk, eps=cfg.norm_eps)
-    if mesh is not None and isinstance(x, DTensor):
-        assert initial_state is None, "the mesh route starts from a zero state"
-        dp, tp = mesh_layout(mesh, b, cfg)
-        mixer = partial(mixer, **_model_groups(mesh, tp, x.shape[-1]))
-        out, state = _on_mesh(mixer, mesh, dp, tp, 0, True)(*args)
-    else:
-        out, state = mixer(*args, initial_state=initial_state)
+    with profiled("ssm.mixer"):
+        if mesh is not None and isinstance(x, DTensor):
+            assert initial_state is None, "the mesh route starts from a zero state"
+            dp, tp = mesh_layout(mesh, b, cfg)
+            mixer = partial(mixer, **_model_groups(mesh, tp, x.shape[-1]))
+            out, state = _on_mesh(mixer, mesh, dp, tp, 0, True)(*args)
+        else:
+            out, state = mixer(*args, initial_state=initial_state)
     return (out, state) if return_state else out
 
 

@@ -240,11 +240,14 @@ def _lookup(embed: DTensor, tokens):
 
 
 def token_embeddings(params, tokens, cfg: ModelConfig):
-    """The embedding rows of ``tokens`` (B, S) -> (B, S, D), scaled for gemma."""
+    """The embedding rows of ``tokens`` (B, S) -> (B, S, D), scaled for gemma
+    and by ``cfg.embedding_multiplier``."""
     embed = params["embed"]
     x = _lookup(embed, tokens) if isinstance(embed, DTensor) else embed[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     return x
 
 
@@ -275,11 +278,27 @@ def head_weight(params, cfg: ModelConfig):
     return grad_in_placements(params["embed"]).T if cfg.tie_embeddings else params["lm_head"]
 
 
-def logits_fn(params, x, cfg: ModelConfig):
-    logits = (x @ head_weight(params, cfg)).float()
+def _scale_logits(logits, cfg: ModelConfig):
+    """f32 logits over ``cfg.logits_divisor``, then gemma2's softcap."""
+    if cfg.logits_divisor != 1.0:
+        logits = logits / cfg.logits_divisor
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def logits_fn(params, x, cfg: ModelConfig):
+    return _scale_logits((x @ head_weight(params, cfg)).float(), cfg)
+
+
+def residual(x, h, cfg: ModelConfig):
+    """``x + h``, the sublayer output ``h`` times ``cfg.residual_multiplier``
+    first where it is not 1."""
+    if cfg.residual_multiplier != 1.0:
+        h = h * cfg.residual_multiplier
+    return x + h
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -295,11 +314,11 @@ def apply_ffn(x, p, spec: LayerSpec, cfg: ModelConfig, mesh=None):
         h = _constrain_batch(L.mlp(h, p["mlp"], cfg.act), mesh)
         if cfg.post_norms:
             h = L.rmsnorm(h, p["ffn_post_norm"], cfg.norm_eps)
-        return x + h, None
+        return residual(x, h, cfg), None
     if spec.ffn == "moe":
         h = _constrain_batch(L.rmsnorm(x, p["ffn_norm"], cfg.norm_eps), mesh)
         h, losses = moe_ffn(h, p["moe"], cfg, mesh=mesh)
-        return x + _constrain_batch(h, mesh), losses
+        return residual(x, _constrain_batch(h, mesh), cfg), losses
     return x, None
 
 
@@ -317,7 +336,7 @@ def _apply_sublayer(x, p, spec: LayerSpec, cfg: ModelConfig, *, positions, cross
     h = _constrain_batch(h, mesh)
     if cfg.post_norms:
         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-    x = x + h
+    x = residual(x, h, cfg)
     if cross_kv is not None:
         h = _constrain_batch(L.rmsnorm(x, p["cross_norm"], cfg.norm_eps), mesh)
         h = L.multihead_attention(h, p["cross"], cfg, positions=None, kv_override=cross_kv,
@@ -392,10 +411,13 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None
     encoder-decoder model; ``vis_embeds`` (B, nv, D): qwen2-vl's patch
     embeddings (``embed_tokens``).
 
-    ``remat``: each block (one pass of the config's pattern) runs under
-    ``torch.utils.checkpoint`` (non-reentrant) while autograd records, as
-    JAX's ``jax.checkpoint`` of its scan body: its activations are
-    recomputed in the backward pass, attention kernels included.
+    ``remat``: each sublayer (one spec of the config's pattern: its mixer
+    and its feed-forward) runs under ``torch.utils.checkpoint``
+    (non-reentrant) while autograd records: its activations are recomputed
+    in the backward pass, attention kernels included, so the backward holds
+    the sublayers' inputs and one sublayer's activations at a time. JAX
+    checkpoints its scan body, a whole block; for a block of one sublayer
+    the two are the same, and the values are the same for any block.
     ``remat="dots"`` is JAX's ``dots_saveable`` policy as a selective
     checkpoint (``dots_saveable``): the outputs of the matrix products and
     of the flash operator are kept, the elementwise chains recomputed.
@@ -416,26 +438,28 @@ def forward(params, tokens, cfg: ModelConfig, *, positions=None, enc_frames=None
             zero = replicate(zero, mesh)
         blocks = [block_slices(tree, cfg.n_blocks) for tree in params["blocks"]]
 
-        def block(x, lb, z, l):
+        def sublayer(x, lb, z, l, i):
             with mesh_context(mesh):       # again in the backward's recompute
-                x = (_constrain_seq(x, mesh, cfg) if cfg.seq_parallel
-                     else _constrain_batch(x, mesh))
-                for i, spec in enumerate(cfg.block):
-                    x, losses = _apply_sublayer(x, blocks[i][l], spec, cfg,
-                                                positions=positions,
-                                                cross_kv=_layer_kv(cross, l), mesh=mesh)
-                    if losses is not None:
-                        lb, z = lb + losses["lb"], z + losses["z"]
+                if i == 0:                 # at each block boundary
+                    x = (_constrain_seq(x, mesh, cfg) if cfg.seq_parallel
+                         else _constrain_batch(x, mesh))
+                x, losses = _apply_sublayer(x, blocks[i][l], cfg.block[i], cfg,
+                                            positions=positions,
+                                            cross_kv=_layer_kv(cross, l), mesh=mesh)
+                if losses is not None:
+                    lb, z = lb + losses["lb"], z + losses["z"]
             return x, lb, z
 
         x = _constrain_batch(x, mesh)
         lb = z = zero
         for l in range(cfg.n_blocks):
-            if remat and torch.is_grad_enabled():
-                ctx = {"context_fn": dots_saveable} if remat == "dots" else {}
-                x, lb, z = checkpoint(block, x, lb, z, l, use_reentrant=False, **ctx)
-            else:
-                x, lb, z = block(x, lb, z, l)
+            for i in range(len(cfg.block)):
+                if remat and torch.is_grad_enabled():
+                    ctx = {"context_fn": dots_saveable} if remat == "dots" else {}
+                    x, lb, z = checkpoint(sublayer, x, lb, z, l, i, use_reentrant=False,
+                                          **ctx)
+                else:
+                    x, lb, z = sublayer(x, lb, z, l, i)
         return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), {"lb": lb, "z": z}
 
 
@@ -455,7 +479,7 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, mask=None, seq_chunk: int 
 
     JAX's rule: chunks of ``c = min(seq_chunk, S)`` positions, one chunk of
     S when c does not divide S. Each chunk's f32 logits (through
-    ``head_weight``, softcapped for gemma2) live only inside a
+    ``head_weight``, over ``logits_divisor``, softcapped for gemma2) live only inside a
     ``torch.utils.checkpoint``, as under JAX's ``jax.checkpoint``, and are
     recomputed in the backward pass. Divides by ``max(mask.sum(), 1)``.
     With a ``mesh`` each chunk's logits are gathered over the vocab
@@ -479,8 +503,7 @@ def lm_loss(params, cfg: ModelConfig, hidden, labels, mask=None, seq_chunk: int 
                 logits = (xc @ w).float()                               # (B, c, V)
                 if mesh is not None:
                     logits = constrain(logits, mesh, P(dp, None, None))
-                if cfg.logit_softcap:
-                    logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+                logits = _scale_logits(logits, cfg)
                 lse = torch.logsumexp(logits, dim=-1)
                 tgt = torch.gather(logits, -1, lc[..., None])[..., 0]
                 return ((lse - tgt) * mc).sum()
@@ -707,6 +730,7 @@ def _decode_attn_sublayer(x, p, cfg: ModelConfig, cache, lengths, positions, mes
     if cfg.rope_theta:
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = L.scale_queries(q, cfg)
     if mesh is not None and isinstance(q, DTensor):
         return _mesh_decode_attend(q, k, v, cache, lengths, cfg, mesh) @ p["wo"]
     return _write_and_attend(q, k, v, cache["k"], cache["v"], cache["kpos"], lengths, 0, 1,
@@ -749,7 +773,7 @@ def decode_step(params, tokens, cache: DecodeCache, cfg: ModelConfig, *, positio
                         local_part(layer_cache[k]).copy_(local_part(v))
                 if cfg.post_norms:
                     h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-                x = x + h
+                x = residual(x, h, cfg)
                 if cache.cross is not None:
                     h = L.rmsnorm(x, p["cross_norm"], cfg.norm_eps)
                     h = L.decode_cross_attention(h, p["cross"], cfg,
@@ -844,7 +868,7 @@ def prefill(params, tokens, cfg: ModelConfig, max_seq: int, *, positions=None,
                     caches[i].append(new)
                     if cfg.post_norms:
                         h = L.rmsnorm(h, p["post_norm"], cfg.norm_eps)
-                    x, _ = apply_ffn(x + h, p, spec, cfg, mesh)
+                    x, _ = apply_ffn(residual(x, h, cfg), p, spec, cfg, mesh)
                     continue
                 k, v = L.project_kv(hpre, p["attn"], cfg, positions)
                 cap = _attn_cache_cap(spec, max_seq)

@@ -86,6 +86,7 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
         if cfg.rope_theta:
             q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
             k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+        q = L.scale_queries(q, cfg)
 
         def attend(q, k, v):
             k, v = (L.kv_for_rank(t, mesh, h, kvh) for t in (k, v))
@@ -125,7 +126,7 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
                             local_part(state[k])[rows] = local_part(v)[rows]
                     if cfg.post_norms:
                         hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
-                    x, _ = T.apply_ffn(x + hh, p, spec, cfg, mesh)
+                    x, _ = T.apply_ffn(T.residual(x, hh, cfg), p, spec, cfg, mesh)
             x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
             return whole(T.logits_fn(params, x, cfg))
 

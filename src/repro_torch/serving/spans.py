@@ -18,12 +18,7 @@ import time
 
 import torch
 
-
-def _profiling() -> bool:
-    """Whether a profiler records: torch's process-wide flag, which every
-    profiler sets (one that follows all threads too), else this thread's."""
-    return (getattr(torch.autograd.profiler, "_is_profiler_enabled", False)
-            or torch.autograd._profiler_enabled())
+from repro_torch.models.layers import profiling as _profiling
 
 
 class _Span:
