@@ -1131,19 +1131,18 @@ def exact_run(torch, cfg, params, kernels: dict, arch: str, prompts: list, max_n
     plain attention. Returns the launches and stats of the engine's run and
     the MoE assignments it dropped at capacity."""
     from repro_torch.models import transformer as T
-    from repro_torch.serving import ServeEngine
 
-    eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=sets[0],
-                      set_size=sets[1], device="cuda")
+    eng, built = built_engine(kernels, cfg, params, max_batch=4, page_size=8,
+                              num_sets=sets[0], set_size=sets[1], device="cuda")
+    check_graph(kernels, attn_layers(cfg), f"exact {arch}")
     rids = [eng.submit(p, max_new=max_new) for p in prompts]
     drops = []
-    zero_launches(kernels)
     with counting_drops(drops):
         eng.run(800)
     torch.cuda.synchronize()
-    launches = read_launches(kernels)
     eng.close()
     st = eng.stats()
+    launches = read_launches(kernels, st["decode_graph_replays"], since=built)
     what = (f"{arch} widths" if arch != "jamba-v0.1-52b" else f"{arch} reduced "
             f"(d_model {cfg.d_model})")
     print(f"[exact] {what} fp32, {cfg.n_layers} layers, page 8, {sets[0]}x{sets[1]} sets, "
@@ -1181,9 +1180,12 @@ def phase_exact(torch, seed: int, kernels: dict, arch: str = "qwen3-8b") -> dict
     n_attn = attn_layers(cfg)
     check(st["preemptions"] > 0 and st["offloads"] > 0 and st["fetches"] > 0,
           f"exact {arch}: the pool-pressure path (preempt, offload, fetch) was not exercised")
-    check((launches["paged_attention"] > 0) == (n_attn > 0),
+    check(st["decode_graph_replays"] == st["decode_steps"] > 0,
+          f"exact {arch}: {st['decode_graph_replays']} graph replays for {st['decode_steps']} "
+          "decode steps")
+    check(launches["paged_attention"] == n_attn * st["decode_steps"],
           f"exact {arch}: {launches['paged_attention']} paged_attention launches for "
-          f"{n_attn} attention layers")
+          f"{st['decode_steps']} decode steps of {n_attn} attention layers")
     check(launches["flash_attention"] == n_attn * len(prompts),
           f"exact {arch}: {launches['flash_attention']} flash launches for {len(prompts)} "
           "prefills")
@@ -1205,15 +1207,48 @@ def zero_launches(kernels: dict) -> None:
         fn.launches = 0
         if hasattr(fn, "combine_launches"):
             fn.combine_launches = fn.splits = 0
+        if hasattr(fn, "captured"):      # a package under a probe's SRC may predate it
+            fn.captured = dict.fromkeys(fn.captured, 0)
         if hasattr(fn, "launches_by_design"):
             fn.launches_by_design = dict.fromkeys(fn.launches_by_design, 0)
 
 
-def read_launches(kernels: dict) -> dict:
+def read_launches(kernels: dict, replays: int = 0, since: dict | None = None,
+                  graphs: int = 1) -> dict:
+    """The launches since ``zero_launches``, less those of ``since`` (an
+    earlier reading). A paged call made while a CUDA graph was captured
+    launched nothing then (``paged_attention.captured``): it counts once a
+    replay, ``replays`` times, as the engine's decode graph launches it.
+    ``graphs`` engines, each with a graph of the same calls, replayed
+    ``replays`` times in all."""
     counts = {name: fn.launches for name, fn in kernels.items()}
     fn = kernels["paged_attention"]
     counts.update(paged_combine=fn.combine_launches, paged_splits=fn.splits)
+    if since is not None:
+        counts = {k: n - since[k] for k, n in counts.items()}
+    for key, cap in (("paged_attention", "launches"), ("paged_combine", "combine_launches"),
+                     ("paged_splits", "splits")):
+        counts[key] += getattr(fn, "captured", {}).get(cap, 0) // graphs * replays
     return counts
+
+
+def built_engine(kernels: dict, *a, **kw):
+    """``ServeEngine(*a, **kw)`` built after ``zero_launches``, and the
+    launches of its build (the eager warm-ups of its decode step; the
+    capture launches nothing), for ``read_launches``' ``since``."""
+    from repro_torch.serving import ServeEngine
+
+    zero_launches(kernels)
+    eng = ServeEngine(*a, **kw)
+    return eng, read_launches(kernels)
+
+
+def check_graph(kernels: dict, n_attn: int, tag: str) -> None:
+    """The engine's decode graph, captured at its build, holds one paged
+    call for each attention layer."""
+    held = kernels["paged_attention"].captured["launches"]
+    check(held == n_attn, f"{tag}: the decode graph holds {held} paged calls for {n_attn} "
+          "attention layers")
 
 
 def read_designs(kernels: dict) -> dict:
@@ -1247,13 +1282,30 @@ def checked_summary(calls: list) -> dict:
             "call_max_rel_l2": max((r for _, r, _ in calls), default=0.0)}
 
 
+def eager_decode(torch, cfg, page: int, mesh=None, params=None):
+    """The engine's decode step run eagerly (``make_paged_decode_step``) on
+    device copies of the engine's host inputs. On a card the engine replays
+    its step from a CUDA graph, which calls no Python: the checks that put
+    another function in the paged kernel's or the router's place run this
+    in the graph's stead. With ``params`` (the mesh route's DTensors) those
+    replace the engine's."""
+    from repro_torch.serving.paged_model import make_paged_decode_step
+
+    step = make_paged_decode_step(cfg, page_size=page, mesh=mesh)
+
+    def run(p, pools, *inputs):
+        return step(p if params is None else params, pools,
+                    *(t.to("cuda", non_blocking=True) for t in inputs))
+    return run
+
+
 class TimedStep:
     """Wraps the engine's decode step and times each call (to a synchronize).
 
-    The first call runs the step twice on the same inputs: once with the
-    plain attention in the kernel's place, for the logits, then with the
-    kernel, holding each of its launches to the plain version on the same
-    inputs. The mamba state the first run writes is put back before the
+    The first call runs ``eager`` (``eager_decode``) twice on the same
+    inputs: once with the plain attention in the kernel's place, for the
+    logits, then with the kernel, holding each of its launches to the plain
+    version on the same inputs; the later calls run ``step_fn``. The mamba state the first run writes is put back before the
     second (the K/V writes are the same both times). The kernel run's MoE
     layers take the plain run's experts and weights, so that its logits
     differ by the attention's error alone; the (token, layer) expert sets
@@ -1262,8 +1314,8 @@ class TimedStep:
     the first run is that step (phase 11: the unsharded step, with the
     kernel) in place of the plain-attention run."""
 
-    def __init__(self, torch, step_fn, reference=None):
-        self.torch, self.step_fn, self.ms, self.first = torch, step_fn, [], None
+    def __init__(self, torch, step_fn, eager, reference=None):
+        self.torch, self.step_fn, self.eager, self.ms, self.first = torch, step_fn, eager, [], None
         self.reference = reference    # the first call's reference run, else plain attention
 
     def _first_step(self, args):
@@ -1293,7 +1345,7 @@ class TimedStep:
             moe.route = recorded(0)
             counted = paged_mod.paged_attention
             counts = (counted.launches, counted.combine_launches, counted.splits)
-            plain = (self.reference or self.step_fn)(*args)
+            plain = (self.reference or self.eager)(*args)
             # the reference's own launches are a comparison's, not the path's
             counted.launches, counted.combine_launches, counted.splits = counts
             for a, saved in states:
@@ -1301,14 +1353,14 @@ class TimedStep:
             del states
             ops.paged_attention = checked_paged(torch, kernel_fn, calls)
             moe.route = recorded(1)
-            got = self.step_fn(*args)
+            got = self.eager(*args)
         finally:
             ops.paged_attention, moe.route = kernel_fn, route_fn
         # (token, MoE layer) pairs whose top-k expert set differs between the runs
         flips = sum(int((a != b).any(-1).sum()) for a, b in zip(*routes))
         self.first = {
             **checked_summary(calls), "lengths": args[3].tolist(),
-            "active_rows": int(args[5].numel()),
+            "active_rows": int(args[5].sum()),
             "routes": sum(len(a) for a in routes[0]), "route_flips": flips,
             "logits_max_abs_err": (got - plain).abs().max().item(),
             "logits_rel_l2": ((got - plain).norm() / plain.norm()).item(),
@@ -1397,7 +1449,9 @@ def decode_step_bytes(cfg, params, eng, lengths: list[int], active: int) -> dict
     every expert's weights are read; of an untied embedding only the B rows
     gathered), the mamba state of the B rows read and of the active rows
     written, the K/V of ``lengths + 1`` keys of each row read and one key of
-    each active row written per attention layer, and the f32 logits."""
+    each active row written per attention layer, and the f32 logits. The
+    masked step's writes of the inactive rows (the sink page, the unchanged
+    state) are its overhead, not bytes the step needs."""
     from repro_torch.kernels import paged_attention as paged_mod
     from repro_torch.tree import leaves
 
@@ -1453,20 +1507,20 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
     serving layout), and its first step is held to the engine's own
     unsharded step, with the kernel, on the same inputs."""
     from repro_torch.configs import get_config
-    from repro_torch.serving import ServeEngine
     from repro_torch.tree import leaves
 
-    eng = ServeEngine(cfg, params, max_batch=4, page_size=16, num_sets=16, set_size=4,
-                      device="cuda")
+    n_attn = attn_layers(cfg)
+    eng, built = built_engine(kernels, cfg, params, max_batch=4, page_size=16, num_sets=16,
+                              set_size=4, device="cuda")
+    check_graph(kernels, n_attn, tag)
     if mesh is None:
-        timed = TimedStep(torch, eng.step_fn)
+        timed = TimedStep(torch, eng.step_fn, eager_decode(torch, cfg, 16))
     else:
         from repro_torch.distributed import distribute_tree, param_specs
-        from repro_torch.serving.paged_model import make_paged_decode_step
 
         dparams = distribute_tree(params, param_specs(params, mesh, fsdp=False), mesh)
-        mesh_step = make_paged_decode_step(cfg, page_size=16, mesh=mesh)
-        timed = TimedStep(torch, lambda _, *a: mesh_step(dparams, *a), reference=eng.step_fn)
+        mesh_step = eager_decode(torch, cfg, 16, mesh=mesh, params=dparams)
+        timed = TimedStep(torch, mesh_step, mesh_step, reference=eager_decode(torch, cfg, 16))
     eng.step_fn = timed
     rng = np.random.default_rng(seed)
     rids = []
@@ -1474,16 +1528,14 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
         n = int(rng.integers(4, 48))
         rids.append(eng.submit([int(x) for x in rng.integers(1, cfg.vocab, n)], max_new=24))
     torch.cuda.reset_peak_memory_stats()
-    zero_launches(kernels)
     t0 = time.perf_counter()
     eng.run(max_steps=5000)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    launches = read_launches(kernels, eng.stats()["decode_graph_replays"], since=built)
     done = sum(eng.result(r).state == "done" for r in rids)
     toks = sum(len(eng.result(r).out) for r in rids)
     first = timed.first
-    n_attn = attn_layers(cfg)
     moved = decode_step_bytes(cfg, params, eng, first["lengths"], first["active_rows"])
     bw = hbm_bytes_per_s(card)
     bound_ms = sum(moved.values()) / bw * 1e3
@@ -1518,9 +1570,14 @@ def phase_serve(torch, cfg, params, seed: int, kernels: dict, card: str, n_req: 
     check(first["logits_rel_l2"] <= BF16_TOL,
           f"{tag}: first-step logits with the kernel differ from those with plain attention")
     check(done == n_req, f"{tag}: only {done}/{n_req} requests finished")
+    # the first step runs eagerly, the engine replays the others from its
+    # graph; the mesh route runs each step eagerly
     check(launches["paged_attention"] == n_attn * res["decode_steps"],
           f"{tag}: {launches['paged_attention']} paged launches for {res['decode_steps']} "
           "decode steps")
+    check(mesh is not None or res["stats"]["decode_graph_replays"] == res["decode_steps"] - 1,
+          f"{tag}: {res['stats']['decode_graph_replays']} graph replays for "
+          f"{res['decode_steps'] - 1} decode steps")
     check(launches["flash_attention"] == n_attn * n_req,
           f"{tag}: {launches['flash_attention']} flash launches for {n_req} prefills")
     check(n_attn == 0 or launches["paged_combine"] > 0,
@@ -1889,11 +1946,14 @@ class StepProbe:
     wrapper (its calls timed on the host clock, no synchronize), and runs
     the calls numbered in ``profile_at`` under torch.profiler instead (they
     are not timed), keeping the paged kernel's device time of each. The
-    first call holds each paged launch to the plain version on the same
-    inputs (``checked_paged``) and is not timed either."""
+    first call runs ``eager`` (``eager_decode``), holds each paged launch to
+    the plain version on the same inputs (``checked_paged``) and is not
+    timed either. The others run ``step_fn``: the engine's graph replays no
+    wrapper call, so their wrapper time is 0."""
 
-    def __init__(self, torch, step_fn, profile_at):
-        self.torch, self.step_fn, self.profile_at = torch, step_fn, set(profile_at)
+    def __init__(self, torch, step_fn, eager, profile_at):
+        self.torch, self.step_fn, self.eager = torch, step_fn, eager
+        self.profile_at = set(profile_at)
         self.ms, self.wrapper_ms, self.paged_ms, self.busy_ms = [], [], [], []
         self.calls, self.first = 0, None
 
@@ -1902,7 +1962,7 @@ class StepProbe:
         kernel_fn, calls = ops.paged_attention, []
         try:
             ops.paged_attention = checked_paged(self.torch, kernel_fn, calls)
-            out = self.step_fn(*args)
+            out = self.eager(*args)
         finally:
             ops.paged_attention = kernel_fn
         self.first = checked_summary(calls)
@@ -1979,12 +2039,13 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     The first prefill is checked, the second timed (time to first token),
     the third profiled."""
     from repro_torch.models import transformer as T
-    from repro_torch.serving import ServeEngine
 
     page, num_sets, set_size = 16, 32, 12
     n_pages = PREFILL_TOKENS // page + 1      # the prompt and the next position
-    eng = ServeEngine(cfg, params, max_batch=2, page_size=page, num_sets=num_sets,
-                      set_size=set_size, max_pages=n_pages + 7, device="cuda")
+    eng, built = built_engine(kernels, cfg, params, max_batch=2, page_size=page,
+                              num_sets=num_sets, set_size=set_size, max_pages=n_pages + 7,
+                              device="cuda")
+    check_graph(kernels, cfg.n_layers, "prefill")
     rng = np.random.default_rng(seed + 6)
     prompts = [[int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)] for _ in range(3)]
     # the reference: the first prompt's prefill with plain attention
@@ -1997,10 +2058,10 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
     probe = PrefillProbe(torch, T.prefill)
     rows = RowProbe(torch, eng._prefill_row, probe, profile_at=2)
     eng._prefill_row = rows
-    steps = StepProbe(torch, eng.step_fn, profile_at=(9, 10, 11))   # the second request's
+    steps = StepProbe(torch, eng.step_fn, eager_decode(torch, cfg, page),   # the second request's
+                      profile_at=(9, 10, 11))
     eng.step_fn = steps
     rids = [eng.submit(p, max_new=PREFILL_NEW) for p in prompts]
-    zero_launches(kernels)
     t0 = time.perf_counter()
     try:
         T.prefill = probe
@@ -2009,7 +2070,7 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
         T.prefill = probe.prefill
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = read_launches(kernels)
+    launches = read_launches(kernels, eng.stats()["decode_graph_replays"], since=built)
     designs = read_designs(kernels)
     eng.close()
     first = probe.first
@@ -2090,6 +2151,9 @@ def phase_prefill(torch, cfg, params, seed: int, kernels: dict, card: str) -> di
           f"prefill: flash launches by design {designs['flash_attention']}")
     check(launches["paged_attention"] == cfg.n_layers * steps.calls,
           f"prefill: {launches['paged_attention']} paged launches for {steps.calls} decode steps")
+    check(eng.stats()["decode_graph_replays"] == steps.calls - 1,
+          f"prefill: {eng.stats()['decode_graph_replays']} graph replays for "
+          f"{steps.calls - 1} decode steps")
     check(len(steps.paged_ms) == 3, f"prefill: {len(steps.paged_ms)} decode steps profiled, not 3")
     check(steps.first["calls_ok"] and steps.first["calls"] == cfg.n_layers,
           "prefill: a paged launch of the first decode step over 4,097 keys differs from the "
@@ -2127,7 +2191,7 @@ def decode_probe(torch, seed: int, card: str) -> dict:
     page = 16
     eng = ServeEngine(cfg, params, max_batch=2, page_size=page, num_sets=32, set_size=12,
                       max_pages=PREFILL_TOKENS // page + 8, device="cuda")
-    steps = StepProbe(torch, eng.step_fn, profile_at=(9, 10, 11))
+    steps = StepProbe(torch, eng.step_fn, eager_decode(torch, cfg, page), profile_at=(9, 10, 11))
     eng.step_fn = steps
     rids = [eng.submit([int(x) for x in rng.integers(1, cfg.vocab, PREFILL_TOKENS)], max_new=16)
             for _ in range(3)]
@@ -2892,7 +2956,6 @@ def mesh_probe(torch, seed: int, card: str, kernels: dict) -> dict:
     from repro_torch.distributed import distribute_tree, param_specs
     from repro_torch.models import transformer as T
     from repro_torch.serving import ServeEngine
-    from repro_torch.serving.paged_model import make_paged_decode_step
 
     constrain = T._constrain_batch
     calls = [0]
@@ -2914,12 +2977,12 @@ def mesh_probe(torch, seed: int, card: str, kernels: dict) -> dict:
         eng = ServeEngine(cfg, params, max_batch=4, page_size=SERVE_PAGE, num_sets=SERVE_POOL[0],
                           set_size=SERVE_POOL[1], device="cuda")
         dparams = distribute_tree(params, param_specs(params, mesh, fsdp=False), mesh)
-        mesh_step = make_paged_decode_step(cfg, page_size=SERVE_PAGE, mesh=mesh)
+        mesh_step = eager_decode(torch, cfg, SERVE_PAGE, mesh=mesh, params=dparams)
         decode_ms, decode_calls = [], []
 
-        def timed(_, *a):
+        def timed(*a):
             c0, t0 = calls[0], time.perf_counter()
-            out = mesh_step(dparams, *a)
+            out = mesh_step(*a)
             torch.cuda.synchronize()
             decode_ms.append((time.perf_counter() - t0) * 1e3)
             decode_calls.append(calls[0] - c0)
@@ -3326,9 +3389,11 @@ def bench_flusher(torch, seed: int, kernels: dict, card: str) -> dict:
     r = serving_bench.run(BENCH_ARCH, full=True, device="cuda", weight_seed=seed,
                           out_dir=ROOT / "chiprun_out")
     torch.cuda.synchronize()
-    launches = read_launches(kernels)
-    free_memory(torch)
     on, off = r["flusher_on"], r["flusher_off"]
+    # two engines, flusher on and off, each replaying its own graph
+    launches = read_launches(kernels, on["decode_graph_replays"] + off["decode_graph_replays"],
+                             graphs=2)
+    free_memory(torch)
     for name, st in (("on ", on), ("off", off)):
         print(f"[tooling] serving bench {BENCH_ARCH} ({r['config']['layers']} layers, bf16), "
               f"flusher {name}: {st['done']}/{BENCH_REQUESTS} done, blocking offloads "
@@ -3347,6 +3412,8 @@ def bench_flusher(torch, seed: int, kernels: dict, card: str) -> dict:
           "tooling: the serving bench preempted no row")
     check(launches["paged_attention"] > 0 and launches["flash_attention"] > 0,
           f"tooling: the serving bench did not launch both attention kernels: {launches}")
+    check(all(st["decode_graph_replays"] == st["decode_steps"] > 0 for st in (on, off)),
+          "tooling: the serving bench's engines did not replay their graphs every decode step")
     return {**r, "launches": launches}
 
 
@@ -3365,8 +3432,8 @@ def roofline_ms(counter) -> dict:
 def counted_steps(torch, card: str, train_full: dict, serve: dict) -> dict:
     """(b) ``launch/cost.py`` over two steps on fake tensors on the card, at
     world 1: tinyllama-1.1b's train step at phase 10's shape (remat, its
-    microbatches) and qwen3-8b's paged decode step at phase 5's batch and
-    active rows, its table as wide as the pages of phase 5's first step's
+    microbatches) and qwen3-8b's paged decode step at phase 5's batch (the
+    masked step computes and writes every row), its table as wide as the pages of phase 5's first step's
     longest row (fake lengths have no values, so the paged kernel's bytes
     count every row at the whole table). Each one's terms and bound beside
     the median that phase measured in this run. The train count must reach
@@ -3401,7 +3468,7 @@ def counted_steps(torch, card: str, train_full: dict, serve: dict) -> dict:
         i32 = dict(dtype=torch.int32, device="cuda")
         args = (params, pools, torch.empty((4, 1), **i32), torch.empty((4,), **i32),
                 torch.empty((4, table), **i32),
-                torch.empty((first["active_rows"],), dtype=torch.long, device="cuda"))
+                torch.ones((4,), dtype=torch.bool, device="cuda"))
         t0 = time.perf_counter()
         with torch.no_grad(), CostMode() as counter:
             make_paged_decode_step(cfg, page_size=SERVE_PAGE)(*args)

@@ -16,7 +16,10 @@ the kernel: ``paged_attention.launches`` (calls of this wrapper, one split
 kernel each), ``paged_attention.combine_launches`` (the merge kernel, which
 runs when a plan has more than one split) and ``paged_attention.splits``
 (splits launched, summed over calls); ``paged_attention.last_plan`` is the
-plan of the latest call.
+plan of the latest call. A call made while the current stream is capturing
+a CUDA graph launches nothing: it counts in ``paged_attention.captured``
+(a dict of the same three counts) instead, and each replay of that graph
+launches what it recorded.
 
 ``cost`` is the work a call needs: the bound of ``chip_smoke.py`` and the
 count of ``launch/cost.py`` both read it.
@@ -158,10 +161,16 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
              b, h, kvh, hd, page, max_pages, per, n_splits, float(softcap), q_scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on_error("paged_attention", err)
-    paged_attention.launches += 1
-    paged_attention.splits += n_splits
-    if n_splits > 1:
-        paged_attention.combine_launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        counts = paged_attention.captured
+        counts["launches"] += 1
+        counts["splits"] += n_splits
+        counts["combine_launches"] += n_splits > 1
+    else:
+        paged_attention.launches += 1
+        paged_attention.splits += n_splits
+        if n_splits > 1:
+            paged_attention.combine_launches += 1
     paged_attention.last_plan = {"pages_per_split": per, "splits": n_splits,
                                  "blocks": _blocks(b, kvh, h // kvh, n_splits)}
     return out
@@ -170,4 +179,5 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, *, softcap: float 
 paged_attention.launches = 0
 paged_attention.combine_launches = 0
 paged_attention.splits = 0
+paged_attention.captured = {"launches": 0, "combine_launches": 0, "splits": 0}
 paged_attention.last_plan = None

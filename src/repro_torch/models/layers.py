@@ -83,11 +83,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     inv = rope_freqs(hd, theta, x.device)                        # (hd/2,)
     if mrope_sections:
         assert positions.dim() == 3, "M-RoPE needs (B, 3, S) positions"
-        # section i's index repeated over its width, built on the host so
-        # the shape never depends on a tensor's values (fake tensors trace it)
-        sec_id = torch.tensor([i for i, n in enumerate(mrope_sections) for _ in range(n)],
-                              device=x.device)                   # (hd/2,)
-        pos = positions.float()[:, sec_id, :]                    # (B, hd/2, S)
+        # stream i repeated over its section's width: views and one copy,
+        # no tensor built from host values (a CUDA graph replays the step)
+        pos = torch.cat([positions[:, i:i + 1].expand(-1, n, -1)
+                         for i, n in enumerate(mrope_sections)], dim=1).float()  # (B, hd/2, S)
         angles = pos.transpose(1, 2) * inv[None, None, :]        # (B, S, hd/2)
     else:
         angles = positions.float()[..., None] * inv              # (B, S, hd/2)

@@ -245,7 +245,9 @@ def token_embeddings(params, tokens, cfg: ModelConfig):
     embed = params["embed"]
     x = _lookup(embed, tokens) if isinstance(embed, DTensor) else embed[tokens]
     if cfg.embed_scale:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
+        # a host number rounded to x's dtype: no device tensor built from a
+        # host value, so a CUDA graph can capture the step
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype).item()
     if cfg.embedding_multiplier != 1.0:
         x = x * cfg.embedding_multiplier
     return x

@@ -32,12 +32,18 @@ those of dense greedy decode. The copy is kept in host memory, as the host
 tier keeps pages, so preempted requests hold no device memory: about 1.6 MB
 a layer a row for mamba2-780m in float32, 76 MB over its 48 layers.
 
+On a card the decode step is one CUDA graph, captured when the engine is
+built and replayed each step (``_decode_fn``): every row of ``max_batch``
+runs, the inactive ones masked (``paged_model.make_paged_decode_step``),
+from static device buffers that each step fills from the scheduler's
+pinned host arrays. On the CPU the same masked step runs eagerly.
+
 The engine times itself (``serving/spans.py``): the decode step split into
 the pool lock's wait, the launches and the rest, each prefill, the blocking
 offloads and fetch waits of the engine thread, each background copy-out of
 the IO threads, and the offload queues' waits; ``stats()`` returns their
-totals beside the pool's counters, and under a profiler each span is also a
-``serve.*`` or ``kv.*`` range on the trace.
+totals beside the pool's counters and the graph's replays, and under a
+profiler each span is also a ``serve.*`` or ``kv.*`` range on the trace.
 """
 from __future__ import annotations
 
@@ -97,7 +103,8 @@ class ServeEngine:
         self.max_pages = max_pages
         self.use_flusher = use_flusher
         n_data_pages = num_sets * set_size
-        self.scratch_page = n_data_pages                  # reserved, never allocated
+        # reserved, never allocated: the decode step's sink for inactive rows
+        self.scratch_page = n_data_pages
         self.pools = init_pools(cfg, num_pages=n_data_pages + 1,
                                 page_size=page_size, max_batch=max_batch,
                                 device=self.device)
@@ -107,26 +114,78 @@ class ServeEngine:
                                 # paper: trigger at half the set (6 of 12)
                                 flush_trigger=max(0, set_size // 2 - 1),
                                 spans=spans)
-        paged_step = make_paged_decode_step(cfg, page_size=page_size)
-
-        def step_fn(*args):
-            # the launches only: it returns once the step is enqueued
-            with spans.span("serve.decode.launch"):
-                return paged_step(*args)
-        self.step_fn = step_fn
         self._attn_positions = [i for i, s in enumerate(cfg.block) if s.kind == "attn"]
         self._mamba_positions = [i for i, s in enumerate(cfg.block) if s.kind != "attn"]
         self._reqs: dict[int, Request] = {}
         self._waiting: list[int] = []
         self._rows: list[Optional[int]] = [None] * max_batch
         self._rid = itertools.count()
-        self._lengths = np.zeros(max_batch, np.int32)
-        self._tables = np.full((max_batch, max_pages), self.scratch_page,
-                               np.int32)
-        self._last_tok = np.zeros(max_batch, np.int64)
+        # the decode step's inputs (tokens, lengths, page table, active
+        # mask): host tensors, pinned on a card, whose numpy views the
+        # scheduler edits in place
+        inputs = (torch.zeros((max_batch, 1), dtype=torch.long),
+                  torch.zeros(max_batch, dtype=torch.int32),
+                  torch.full((max_batch, max_pages), self.scratch_page, dtype=torch.int32),
+                  torch.zeros(max_batch, dtype=torch.bool))
+        if self.device.type == "cuda":
+            inputs = tuple(t.pin_memory() for t in inputs)
+        self._inputs = inputs
+        self._last_tok = inputs[0].numpy()[:, 0]
+        self._lengths, self._tables, self._active = (t.numpy() for t in inputs[1:])
         self._pools_lock = threading.Lock()
+        self._graph = None
+        self.step_fn = self._decode_fn(make_paged_decode_step(cfg, page_size=page_size))
         self.preemptions = 0
         self.blocking_offloads = 0
+
+    def _decode_fn(self, paged_step):
+        """``step_fn(params, pools, tokens, lengths, page_table, active)``:
+        the decode step, returning its logits once the step is enqueued.
+        On a card the step is captured once, here, in a CUDA graph over
+        these params and pools and static device copies of the inputs;
+        each call copies the inputs in and replays the graph on the
+        current stream, so it runs in lock order with the offload threads'
+        copies, as the eager step did. That step raises when given other
+        params or pools than the engine's, and once the engine is closed. The engine builds its step without a
+        mesh (the mesh route, ``make_paged_decode_step(mesh=)``, stays
+        eager). On the CPU the step runs eagerly on the inputs given."""
+        spans = self.spans
+        if self.device.type != "cuda":
+            def step_fn(*args):
+                with spans.span("serve.decode.launch"):
+                    return paged_step(*args)
+            return step_fn
+
+        bufs = tuple(torch.empty_like(t, device=self.device) for t in self._inputs)
+        for buf, t in zip(bufs, self._inputs):
+            buf.copy_(t)
+        # every row inactive: the warm-up and capture write only the sink page
+        with torch.no_grad():
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):        # kernel builds, cuBLAS and the allocator
+                    paged_step(self.params, self.pools, *bufs)
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self._graph = graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                logits = paged_step(self.params, self.pools, *bufs)
+
+        def step_fn(params, pools, *inputs):
+            # the graph reads the params and pools it was captured with, and
+            # no others; after close() it holds nothing
+            if params is not self.params or pools is not self.pools:
+                raise ValueError("the decode graph was captured over the engine's own "
+                                 "params and pools; it cannot run on others")
+            if self._graph is None:
+                raise RuntimeError("the engine is closed: its decode graph was released")
+            with spans.span("serve.decode.launch"):
+                for buf, t in zip(bufs, inputs):
+                    buf.copy_(t, non_blocking=True)
+                graph.replay()
+                spans.add("decode_graph_replays")
+                return logits
+        return step_fn
 
     # ------------------------------------------------------------- tags
     def _tag(self, rid: int, page_idx: int) -> int:
@@ -363,21 +422,20 @@ class ServeEngine:
         active_rows = [i for i, r in enumerate(self._rows) if r is not None]
         if not active_rows:
             return
-        dev = self.device
-        # serve.decode: the pool lock's wait, the launches (inside step_fn),
-        # and the rest (the inputs' copies, the wait for the device's tokens)
+        self._active[:] = [r is not None for r in self._rows]
+        # serve.decode: the pool lock's wait, the launches (inside step_fn:
+        # the inputs' copies and the step), and the wait for the tokens
         with self.spans.span("serve.decode"):
             with self.spans.span("serve.decode.lock"):
                 self._pools_lock.acquire()
             try:
-                logits = self.step_fn(
-                    self.params, self.pools,
-                    torch.from_numpy(self._last_tok[:, None]).to(dev),
-                    torch.from_numpy(self._lengths).to(dev),
-                    torch.from_numpy(self._tables).to(dev),
-                    torch.tensor(active_rows, dtype=torch.long, device=dev))
+                logits = self.step_fn(self.params, self.pools, *self._inputs)
             finally:
                 self._pools_lock.release()
+            # on a card the step copies its inputs out of the pinned host
+            # arrays asynchronously; this copy to the host follows it on the
+            # same stream and waits for it, so the arrays are free to edit
+            # once it returns
             toks = logits[:, -1, :].argmax(dim=-1).cpu().numpy()
         self.spans.add("decode_rows_active", len(active_rows))
         self.spans.add("decode_rows_computed", len(toks))
@@ -433,6 +491,7 @@ class ServeEngine:
             "decode_s": sp.seconds("serve.decode"),
             "decode_lock_s": sp.seconds("serve.decode.lock"),
             "decode_launch_s": sp.seconds("serve.decode.launch"),
+            "decode_graph_replays": sp.count("decode_graph_replays"),
             "prefill_s": sp.seconds("serve.prefill"),
             "prefill_tokens": sp.count("prefill_tokens"),
             "blocking_offload_s": sp.seconds("serve.offload_blocking"),
@@ -447,3 +506,6 @@ class ServeEngine:
 
     def close(self):
         self.pool.close()
+        if self._graph is not None:       # its memory goes back to the allocator
+            self._graph.reset()
+            self._graph = None

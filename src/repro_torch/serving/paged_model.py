@@ -57,25 +57,30 @@ def init_pools(cfg: ModelConfig, *, num_pages: int, page_size: int, max_batch: i
 
 
 def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
-    """Returns ``step(params, pools, tokens, lengths, page_table, rows) ->
-    logits (B, 1, V)``. An encoder-decoder model raises
+    """Returns ``step(params, pools, tokens, lengths, page_table, active) ->
+    logits (B, 1, V)``, JAX's signature. An encoder-decoder model raises
     (``transformer.check_servable``).
 
     tokens: (B, 1); lengths: (B,) int32 tokens already in the pool;
-    page_table: (B, max_pages) int32 pool ids; rows: (n,) int64 indices of the
-    active rows. Only the active rows write their new K/V, at
-    ``(page_table[b, len // page], len % page)``, and their new mamba state
-    (JAX's ``where(active, new, old)``: a preempted or empty row's state does
-    not move); every row attends, over ``lengths + 1`` keys (an inactive row
-    reads the scratch page its table points at, and its output is ignored).
-    Positions are ``lengths``: (B, 1), or (B, 3, 1) under M-RoPE, as JAX.
-    With a ``mesh`` the logits come back plain and whole on every rank.
+    page_table: (B, max_pages) int32 pool ids; active: (B,) bool. Every row
+    is computed, and every row attends over ``lengths + 1`` keys (an
+    inactive row's output is ignored). An active row writes its new K/V at
+    ``(page_table[b, len // page], len % page)`` and its new mamba state.
+    An inactive row writes nothing an active row can read: its K/V goes to
+    the sink, the pool's last page (the engine's ``scratch_page``, never
+    allocated), whatever its length or table hold (a stale length past its
+    table indexes entry 0 of it), and its mamba state does not move (JAX's
+    ``where(active, new, old)``). Its inputs' shapes alone decide what the
+    step launches, so the step can be captured in a CUDA graph and replayed
+    with new values. Positions are ``lengths``: (B, 1), or (B, 3, 1) under
+    M-RoPE, as JAX. With a ``mesh`` the logits come back plain and whole on
+    every rank.
     """
     T.check_servable(cfg)
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = [i for i, spec in enumerate(cfg.block) if spec.kind == "attn"]
 
-    def attn_sublayer(x, p, k_pool, v_pool, rows, pids, offs, page_table, lengths1,
-                      positions):
+    def attn_sublayer(x, p, k_pool, v_pool, pids, offs, page_table, lengths1, positions):
         b = x.shape[0]
         q = L.split_heads(x @ p["wq"], h, hd)
         k = L.split_heads(x @ p["wk"], kvh, hd)
@@ -90,8 +95,8 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
 
         def attend(q, k, v):
             k, v = (L.kv_for_rank(t, mesh, h, kvh) for t in (k, v))
-            k_pool[pids, offs] = k[rows, 0]
-            v_pool[pids, offs] = v[rows, 0]
+            k_pool[pids, offs] = k[:, 0]
+            v_pool[pids, offs] = v[:, 0]
             out = ops.paged_attention(q[:, 0].contiguous(), k_pool, v_pool, page_table,
                                       lengths1, softcap=cfg.attn_softcap)
             return out.reshape(b, 1, -1)
@@ -102,14 +107,18 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
                                device_mesh=mesh, redistribute_inputs=True)
         return attend(q, k, v) @ p["wo"]
 
-    def step(params, pools, tokens, lengths, page_table, rows):
+    def step(params, pools, tokens, lengths, page_table, active):
         positions = lengths[:, None]
         if cfg.mrope_sections:
             positions = lengths[:, None, None].expand(-1, 3, 1)
         lengths1 = lengths + 1
-        cur = lengths[rows].long()
-        pids = page_table[rows, cur // page_size].long()
-        offs = cur % page_size
+        cur = lengths.long()
+        pids = offs = None
+        if attn:
+            sink = pools[attn[0]]["k"].shape[1] - 1
+            slot = torch.where(active, cur // page_size, 0)[:, None]
+            pids = torch.where(active, page_table.gather(1, slot)[:, 0].long(), sink)
+            offs = cur % page_size
         with mesh_context(mesh):
             x = T.token_embeddings(params, tokens, cfg)
             for l in range(cfg.n_blocks):
@@ -118,12 +127,14 @@ def make_paged_decode_step(cfg: ModelConfig, *, page_size: int, mesh=None):
                     hh = L.rmsnorm(x, p["norm"], cfg.norm_eps)
                     if spec.kind == "attn":
                         hh = attn_sublayer(hh, p["attn"], pools[i]["k"][l], pools[i]["v"][l],
-                                           rows, pids, offs, page_table, lengths1, positions)
+                                           pids, offs, page_table, lengths1, positions)
                     else:
                         state = T.layer_params(pools[i], l)
                         hh, new = mamba_decode_step(hh, state, p["attn"], cfg)
                         for k, v in new.items():
-                            local_part(state[k])[rows] = local_part(v)[rows]
+                            old = local_part(state[k])
+                            keep = active.view(-1, *([1] * (old.dim() - 1)))
+                            old.copy_(torch.where(keep, local_part(v), old))
                     if cfg.post_norms:
                         hh = L.rmsnorm(hh, p["post_norm"], cfg.norm_eps)
                     x, _ = T.apply_ffn(T.residual(x, hh, cfg), p, spec, cfg, mesh)

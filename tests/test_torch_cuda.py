@@ -93,6 +93,24 @@ def test_kernel_matches_plain_version(card, case, dtype, softcap):
     _assert_paged_close(out, ref.paged_attention_ref(*args, softcap=softcap), dtype)
 
 
+def test_kernel_call_under_capture_counts_as_captured(card):
+    """A call made while a CUDA graph is captured launches nothing and
+    counts in ``captured``, not in ``launches``; the replay computes what
+    an eager call does."""
+    args = _inputs(PAGED_CASES[0], torch.float32, seed=0)
+    fn = cuda_paged.paged_attention
+    ops.paged_attention(*args)                  # the build, outside the capture
+    torch.cuda.synchronize()
+    before = (fn.launches, fn.captured["launches"])
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.paged_attention(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.captured["launches"]) == (before[0], before[1] + 1)
+    _assert_paged_close(out, ref.paged_attention_ref(*args), "float32")
+
+
 @pytest.mark.parametrize("dtype", list(TOLS))
 def test_kernel_length_zero_gives_zero(card, dtype):
     args = _inputs((5, 4, 2, 16, 8, 4, 16), getattr(torch, dtype), seed=9,
@@ -347,20 +365,31 @@ def test_select_flush_candidates_on_card_equals_cpu(card):
 
 
 def test_engine_through_kernel_matches_dense_decode(card, monkeypatch):
+    """The engine's decode step, one CUDA graph replayed each step, emits
+    dense greedy decode's tokens under pool pressure. The paged kernel's
+    wrapper is called only while the engine is built: its warm-ups launch
+    the kernel, and its capture records one call per layer into the graph,
+    which each replay launches."""
     cfg = reduced(get_config("tinyllama-1.1b"))
     params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), card)
+    fn = cuda_paged.paged_attention
+    before = (fn.launches, fn.captured["launches"], cuda_flash.flash_attention.launches)
     eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=4, set_size=3,
                       device=card)
+    built = fn.launches
+    assert built > before[0]
+    assert fn.captured["launches"] - before[1] == cfg.n_layers
     rng = np.random.default_rng(3)
     prompts = [[int(x) for x in rng.integers(1, 250, int(rng.integers(3, 20)))]
                for _ in range(6)]
     rids = [eng.submit(p, max_new=24) for p in prompts]
-    before = (cuda_paged.paged_attention.launches, cuda_flash.flash_attention.launches)
     eng.run(800)
     eng.close()
-    assert cuda_paged.paged_attention.launches > before[0]
-    assert cuda_flash.flash_attention.launches >= before[1] + cfg.n_layers * len(prompts)
-    assert eng.stats()["preemptions"] > 0
+    assert fn.launches == built and fn.captured["launches"] - before[1] == cfg.n_layers
+    assert cuda_flash.flash_attention.launches >= before[2] + cfg.n_layers * len(prompts)
+    st = eng.stats()
+    assert st["preemptions"] > 0
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0
     # the reference prefills with the plain attention in the kernel's place
     monkeypatch.setattr(ops, "flash_attention", ref.flash_attention_ref)
     with torch.no_grad():
@@ -398,7 +427,7 @@ def test_moe_and_mamba_step_on_card_match_cpu(card, arch):
             a.copy_(torch.randn(a.shape, generator=gen) * 0.5)
     table = torch.arange(12, dtype=torch.int32).reshape(4, 3)
     args = (torch.tensor([[3], [4], [5], [6]]), torch.tensor([5, 20, 0, 9], dtype=torch.int32),
-            table, torch.tensor([0, 1, 3]))
+            table, torch.tensor([True, True, False, True]))
     step = make_paged_decode_step(cfg, page_size=8)
     card_pools = _to(pools, card)
     got = step(_to(params, card), card_pools, *_to(args, card))
@@ -433,6 +462,8 @@ def test_preempted_mamba_state_waits_in_host_memory(card):
     eng._waiting.append(rid)
     eng.run(50)
     eng.close()
+    st = eng.stats()
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0
     with torch.no_grad():
         last, cache = T.prefill(params, torch.tensor([prompt], device=card), cfg, max_seq=128)
         t = last[:, -1].argmax(-1)[:, None]
@@ -442,6 +473,59 @@ def test_preempted_mamba_state_waits_in_host_memory(card):
             lg, cache = T.decode_step(params, t, cache, cfg)
             t = lg[:, -1].argmax(-1)[:, None]
     assert req.state == "done" and req.out == want
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "jamba-v0.1-52b", "gemma2-27b", "qwen2-vl-72b"])
+def test_engine_graph_step_matches_eager_step(card, arch):
+    """One replay of the engine's captured step equals the eager step on
+    the same params, pools and inputs within 2e-5 in fp32: logits, every
+    pool page but the sink, mamba state; an inactive row's state stays."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), card)
+    eng = ServeEngine(cfg, params, max_batch=4, page_size=8, num_sets=4, set_size=3,
+                      max_pages=3, device=card)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for p in eng.pools:
+        for a in p.values():
+            a.copy_(torch.randn(a.shape, generator=gen, device=card) * 0.5)
+    eng._last_tok[:] = [3, 4, 5, 6]
+    eng._lengths[:] = [5, 20, 2 * 8 * 3, 9]        # row 2: inactive, past its table
+    eng._tables[:] = np.arange(12, dtype=np.int32).reshape(4, 3)
+    eng._active[:] = [True, True, False, True]
+    pools = _to(eng.pools, card)
+    want = make_paged_decode_step(cfg, page_size=8)(
+        params, pools, *(t.to(card) for t in eng._inputs))
+    before = _to(eng.pools, card)
+    got = eng.step_fn(eng.params, eng.pools, *eng._inputs).clone()
+    eng.close()
+    assert eng.stats()["decode_graph_replays"] == 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    for spec, p, w, b in zip(cfg.block, eng.pools, pools, before):
+        for k, a in p.items():
+            if spec.kind == "attn":
+                torch.testing.assert_close(a[:, :12], w[k][:, :12], atol=2e-5, rtol=2e-5)
+            else:
+                torch.testing.assert_close(a, w[k], atol=2e-5, rtol=2e-5)
+                assert torch.equal(a[:, 2], b[k][:, 2])
+
+
+def test_engine_graph_step_refuses_other_params_and_a_closed_engine(card):
+    """The graph reads the params and pools it was captured over: the
+    engine's step refuses others, and refuses to run once the engine is
+    closed and its graph released."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), card)
+    eng = ServeEngine(cfg, params, max_batch=2, page_size=8, num_sets=4, set_size=3,
+                      device=card)
+    with pytest.raises(ValueError):
+        eng.step_fn(dict(eng.params), eng.pools, *eng._inputs)
+    with pytest.raises(ValueError):
+        eng.step_fn(eng.params, list(eng.pools), *eng._inputs)
+    eng.step_fn(eng.params, eng.pools, *eng._inputs)
+    eng.close()
+    with pytest.raises(RuntimeError):
+        eng.step_fn(eng.params, eng.pools, *eng._inputs)
+    assert eng.stats()["decode_graph_replays"] == 1
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])

@@ -194,7 +194,7 @@ def _paged(cfg, mesh) -> dict:
     params = T.init_params(cfg, torch.Generator().manual_seed(0))
     b = 4
     table = torch.arange(b * 4, dtype=torch.int32).reshape(b, 4)
-    rows = torch.tensor([0, 1, 3])
+    active = torch.tensor([True, True, False, True])
     tokens = torch.randint(0, cfg.vocab, (PAGED_STEPS, b, 1),
                            generator=torch.Generator().manual_seed(1)).to(torch.int32)
     out = {}
@@ -206,7 +206,7 @@ def _paged(cfg, mesh) -> dict:
         logits = []
         with torch.no_grad():
             for t in range(PAGED_STEPS):
-                logits.append(step(p, pools, tokens[t], lengths, table, rows))
+                logits.append(step(p, pools, tokens[t], lengths, table, active))
                 lengths = lengths + 1
         out[tag] = torch.stack(logits).numpy()
     return out

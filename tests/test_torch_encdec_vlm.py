@@ -339,7 +339,7 @@ def test_paged_step_positions_are_mrope_streams(monkeypatch):
     lengths = torch.tensor([5, 9], dtype=torch.int32)
     make_paged_decode_step(cfg, page_size=8)(
         params, pools, torch.tensor([[3], [4]]), lengths,
-        torch.arange(6, dtype=torch.int32).reshape(2, 3), torch.tensor([0, 1]))
+        torch.arange(6, dtype=torch.int32).reshape(2, 3), torch.tensor([True, True]))
     assert seen and all(tuple(p.shape) == (2, 3, 1) for p in seen)
     assert torch.equal(seen[0][:, :, 0], lengths[:, None].expand(2, 3))
 

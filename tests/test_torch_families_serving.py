@@ -6,11 +6,13 @@ import pytest
 
 import jax
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from repro.configs import get_config as jax_get_config, reduced as jax_reduced
 from repro.models import transformer as JT
 from repro.serving import ServeEngine as JaxServeEngine
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -53,13 +55,109 @@ def test_paged_step_moves_only_active_rows_state(arch):
     step = make_paged_decode_step(cfg, page_size=8)
     table = torch.arange(9, dtype=torch.int32).reshape(3, 3)
     step(params, pools, torch.tensor([[3], [4], [5]]), torch.tensor([5, 9, 2], dtype=torch.int32),
-         table, torch.tensor([0, 2]))
+         table, torch.tensor([True, False, True]))
     for spec, p, old in zip(cfg.block, pools, before):
         if spec.kind != "mamba":
             continue
         for k, a in p.items():
             torch.testing.assert_close(a[:, 1], old[k][:, 1], atol=0, rtol=0)
             assert not torch.equal(a[:, 0], old[k][:, 0]) and not torch.equal(a[:, 2], old[k][:, 2])
+
+
+def _cloned(pools):
+    return tuple({k: a.clone() for k, a in p.items()} for p in pools)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b"] + MAMBA_FAMILIES)
+def test_inactive_row_writes_nothing_an_active_row_reads(arch):
+    """An inactive row with a stale length past its table, whose table
+    points at an active row's live pages, changes no page but the sink
+    (the pool's last page) and none of its own mamba state; the active
+    rows' logits, K/V and state equal those of an all-active call on the
+    same inputs, the inactive row given a length and pages of its own."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    page, b = 8, 4
+    pools = init_pools(cfg, num_pages=b * 3 + 1, page_size=page, max_batch=b)
+    gen = torch.Generator().manual_seed(1)
+    for p in pools:
+        for a in p.values():
+            a.copy_(torch.randn(a.shape, generator=gen))
+    sink = b * 3
+    step = make_paged_decode_step(cfg, page_size=page)
+    tokens = torch.tensor([[3], [4], [5], [6]])
+    table = torch.arange(b * 3, dtype=torch.int32).reshape(b, 3)
+    lengths = torch.tensor([5, 20, 2, 9], dtype=torch.int32)
+    stale_table, stale_lengths = table.clone(), lengths.clone()
+    stale_table[2], stale_lengths[2] = table[0], 3 * page + 7    # slot 3 of a 3-page table
+    masked, full = _cloned(pools), _cloned(pools)
+    with torch.no_grad():
+        got = step(params, masked, tokens, stale_lengths, stale_table,
+                   torch.tensor([True, True, False, True]))
+        want = step(params, full, tokens, lengths, table, torch.ones(b, dtype=torch.bool))
+    live, own = [0, 1, 3], table[2].tolist()
+    torch.testing.assert_close(got[live], want[live], atol=2e-5, rtol=2e-5)
+    for spec, p, m, w in zip(cfg.block, pools, masked, full):
+        for k, a in m.items():
+            if spec.kind == "attn":
+                others = [q for q in range(sink) if q not in own]
+                torch.testing.assert_close(a[:, others], w[k][:, others], atol=2e-5, rtol=2e-5)
+                assert torch.equal(a[:, own], p[k][:, own])
+            else:
+                torch.testing.assert_close(a[:, live], w[k][:, live], atol=2e-5, rtol=2e-5)
+                assert torch.equal(a[:, 2], p[k][:, 2])
+
+
+class _HostValues(TorchDispatchMode):
+    """The ops that compute with a tensor built from a host value
+    (``torch.tensor``, ``aten.lift_fresh``). Taking its number back to the
+    host (``.item()``, ``aten._local_scalar_dense``) is not such a use: a
+    CUDA graph captures that number as a kernel argument."""
+
+    def __init__(self):
+        super().__init__()
+        self.fresh: list[torch.Tensor] = []     # held, so no id is reused
+        self.uses: list[str] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten.lift_fresh.default:
+            self.fresh.append(out)
+        elif func is not torch.ops.aten._local_scalar_dense.default:
+            read = tree_leaves((args, kwargs))
+            if any(a is f for a in read for f in self.fresh):
+                self.uses.append(str(func))
+        return out
+
+
+def test_host_value_detector_sees_a_device_tensor_of_a_host_value():
+    """``_HostValues`` flags a product with ``torch.tensor(v)`` (a device
+    tensor on a card) and passes one with ``torch.tensor(v).item()``."""
+    x = torch.ones(3)
+    with _HostValues() as c:
+        x * torch.tensor(2.0, dtype=x.dtype, device=x.device)
+    assert c.uses == ["aten.mul.Tensor"]
+    with _HostValues() as c:
+        x * torch.tensor(2.0, dtype=x.dtype).item()
+    assert c.fresh and not c.uses
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a != "whisper-tiny"])
+def test_paged_step_builds_no_tensor_from_host_values(arch):
+    """No op of the paged step, in any family the engine serves, computes
+    with a tensor built from a host value (gemma2's embedding scale once,
+    M-RoPE's sections): on a card such a tensor is copied from host memory,
+    and the engine captures the step in a CUDA graph, which would replay
+    that copy from host memory long freed."""
+    cfg = reduced(get_config(arch))
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    pools = init_pools(cfg, num_pages=7, page_size=8, max_batch=2)
+    args = (params, pools, torch.tensor([[3], [4]]), torch.tensor([5, 9], dtype=torch.int32),
+            torch.arange(6, dtype=torch.int32).reshape(2, 3), torch.tensor([True, False]))
+    step = make_paged_decode_step(cfg, page_size=8)
+    with torch.no_grad(), _HostValues() as c:
+        step(*args)
+    assert not c.uses
 
 
 # ---------------------------------------------------------------------------

@@ -274,8 +274,10 @@ def _digest(ops) -> tuple[int, str]:
 
 
 # counted on the tree before the new ModelConfig fields, ranges and remat
-# per sublayer (commit bb0444f), with this file's functions
-PINNED = {"olmoe_decode": (351, "3d2c8fb065c6236faad36e59402490d68ac1cb3e453017eea4ec382cc4d4c4ca"),
+# per sublayer (commit bb0444f), with this file's functions; the decode step
+# re-counted for its (B,) active mask, which replaced the active rows' index
+# (351 ops before)
+PINNED = {"olmoe_decode": (352, "37d4a13feda6dd286a78bde127f4f353966268c19d024722653c4590b30baeaf"),
           "granite_train": (1662,
                             "458f513861507b30a17ac82a87925dc74ae17ac46622ad9da78b651d7e07a18a")}
 
@@ -286,7 +288,7 @@ def test_olmoe_paged_decode_launches_the_pinned_ops():
     pools = init_pools(cfg, num_pages=9, page_size=8, max_batch=3)
     step = make_paged_decode_step(cfg, page_size=8)
     args = (params, pools, torch.tensor([[3], [4], [5]]), torch.tensor([5, 9, 2], dtype=torch.int32),
-            torch.arange(9, dtype=torch.int32).reshape(3, 3), torch.tensor([0, 2]))
+            torch.arange(9, dtype=torch.int32).reshape(3, 3), torch.tensor([True, False, True]))
     with torch.no_grad():
         step(*args)
         with _Ops() as c:
@@ -340,7 +342,7 @@ def test_prefill_and_paged_decode_match_the_reference():
             toks = torch.stack([g[-1].argmax() for g in got])[:, None]
             for row in range(2):
                 seqs[row].append(int(toks[row, 0]))
-            logits = decode(params, pools, toks, lengths, table, torch.arange(2))
+            logits = decode(params, pools, toks, lengths, table, torch.ones(2, dtype=torch.bool))
             for row in range(2):
                 got[row].append(logits[row, 0])
             lengths = lengths + 1
